@@ -1,0 +1,50 @@
+"""Checks shared by the kernel wrappers before they launch or run plain."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def check_inputs(
+    name: str, tensors: Sequence[torch.Tensor], shapes: Sequence[tuple]
+) -> str:
+    """Validate device, dtype, shape and contiguity; return "cpu" or "cuda".
+
+    A kernel output carries no gradient, so asking for one raises here
+    instead of silently detaching."""
+    first = tensors[0]
+    dev = first.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if first.dtype not in _DTYPES:
+        raise TypeError(f"{name}: dtype must be float32 or float64, got {first.dtype}")
+    for i, (t, shape) in enumerate(zip(tensors, shapes)):
+        if t.device != dev:
+            raise ValueError(f"{name}: input {i} on {t.device}, expected {dev}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"{name}: input {i} is {t.dtype}, expected {first.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(
+                f"{name}: input {i} has shape {tuple(t.shape)}, expected {tuple(shape)}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: input {i} is not contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward pass; score through the torch "
+            "composition where a gradient is needed"
+        )
+    return dev.type
+
+
+def suffix(dtype: torch.dtype) -> str:
+    return _DTYPES[dtype]
+
+
+def raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
