@@ -10,6 +10,9 @@ the resulting numpy arrays into the port's tensors on a device:
   ``GPPosterior``;
 * ``posterior_to_numpy`` — the inverse, for comparing the two packages.
 
+Like every entry point of the port, both run on the CUDA card unless the
+caller passes ``device="cpu"``; with no card visible the default raises.
+
 A JAX ``BOSuggester.state_dict()`` needs no conversion: the port's
 ``BOSuggester.load_state_dict`` takes it unchanged (the threefry key stays a
 uint32 pair, the GPHP draws packed float64 lists).
@@ -22,6 +25,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.gp.gp import GPPosterior
 from repro_torch.core.gp.params import GPHyperParams
 
@@ -29,9 +33,11 @@ __all__ = ["params_from_numpy", "posterior_from_numpy", "posterior_to_numpy"]
 
 
 def params_from_numpy(
-    packed, d: Optional[int] = None, device="cpu"
+    packed, d: Optional[int] = None, device=None
 ) -> GPHyperParams:
-    """Packed log-space GPHPs → ``GPHyperParams`` of float64 tensors."""
+    """Packed log-space GPHPs → ``GPHyperParams`` of float64 tensors on
+    ``device`` (``None``: the CUDA card)."""
+    device = resolve_device(device)
     vec = torch.as_tensor(np.array(packed, dtype=np.float64)).to(device)
     if d is None:
         d = (vec.shape[-1] - 2) // 3
@@ -40,8 +46,10 @@ def params_from_numpy(
     return GPHyperParams.unpack(vec, d)
 
 
-def posterior_from_numpy(blob: Mapping[str, Any], device="cpu") -> GPPosterior:
-    """A factorized posterior from numpy arrays (see the module docstring)."""
+def posterior_from_numpy(blob: Mapping[str, Any], device=None) -> GPPosterior:
+    """A factorized posterior from numpy arrays (see the module docstring),
+    on ``device`` (``None``: the CUDA card)."""
+    device = resolve_device(device)
 
     def f64(key):
         return torch.as_tensor(np.array(blob[key], dtype=np.float64)).to(device)

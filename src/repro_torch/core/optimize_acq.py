@@ -27,8 +27,12 @@ Ranking ties (anchors masked to −inf tie often) resolve to the lower index
 first, as ``jax.lax.top_k`` and ``jnp.argsort`` do: a stable sort on the
 negated values.
 
-Multi-metric acquisition (``optimize_acquisition_multi``) waits for ROADMAP
-queue A item 8.
+``optimize_acquisition_multi`` runs the same pipeline on the multi-head
+acquisitions (constrained EI, random-scalarization EI, rung-weighted EI and
+EI-per-unit-cost) over the shared-factor posterior: the anchor sweep and the
+final re-rank through the fused ``acq_score_multi`` kernel, the refinement
+through the torch composition. The per-head-posterior layout of the
+reference (``per_head_gphp``) is not ported (ROADMAP queue A item 10).
 """
 
 from __future__ import annotations
@@ -42,7 +46,12 @@ from repro_torch.core import acquisition as A
 from repro_torch.core import prng
 from repro_torch.core.gp.gp import GPPosterior, predict
 
-__all__ = ["AcqOptConfig", "optimize_acquisition"]
+__all__ = [
+    "AcqOptConfig",
+    "MultiMetricHead",
+    "optimize_acquisition",
+    "optimize_acquisition_multi",
+]
 
 
 class AcqOptConfig(NamedTuple):
@@ -181,6 +190,82 @@ def optimize_acquisition(
     def score(x: torch.Tensor, differentiable: bool) -> torch.Tensor:
         return _acq_values(post, x, y_best, cfg, k_ts,
                            differentiable=differentiable)
+
+    masked_acq = _pending_masked(score, pending, pending_mask, cfg)
+    return _refine_and_rank(masked_acq, anchors, cfg)
+
+
+class MultiMetricHead(NamedTuple):
+    """Per-decision state of the multi-metric acquisition: everything beyond
+    the shared-factor posterior that the scorer needs. Objectives lead,
+    constraints trail (the ``MetricSet`` order).
+
+    ``weights``/``y_best_w`` are the random-scalarization draws of Pareto
+    mode (empty, W=0, in constrained mode); ``y_best``/``has_feasible``
+    drive constrained EI and are ignored in Pareto mode. ``head_posts`` must
+    stay empty: the per-head-posterior layout is not ported.
+
+    The scoring mode is passed beside the head: ``"constrained"`` and
+    ``"pareto"`` as above; ``"rungs"`` is the multi-fidelity f(x, r)
+    acquisition (heads [objective, rung 0, …, rung R−1], a weighted per-head
+    EI); ``"cost"`` is EI-per-unit-cost (``BOConfig.cost_aware``: heads
+    [objective, standardized log-cost], EI(head 0) · exp(−η · mean(head 1))
+    with η in ``weights[0, 0]``)."""
+
+    alphas: torch.Tensor  # (S, M, n) all-head K̃⁻¹y (head 0 = objective)
+    t_std: torch.Tensor  # (C,) standardized signed constraint thresholds
+    y_best: float  # best *feasible* standardized objective
+    has_feasible: bool  # a feasible incumbent exists
+    weights: torch.Tensor  # (W, K) simplex scalarization draws
+    y_best_w: torch.Tensor  # (W,) best observed scalarized value per draw
+    head_posts: tuple = ()  # per-head posteriors (per_head_gphp, not ported)
+
+
+def _acq_values_multi(
+    post: GPPosterior,
+    head: MultiMetricHead,
+    x: torch.Tensor,
+    cfg: AcqOptConfig,
+    mode: str,
+    *,
+    differentiable: bool = False,
+) -> torch.Tensor:
+    """Integrated multi-metric acquisition at x: (m, d) → (m,). The fused
+    multi-head kernel serves the dense anchor sweep; gradient refinement
+    always goes through the torch composition (autograd)."""
+    from repro_torch.kernels.acq_score.ops import acq_score_multi
+
+    if head.head_posts:
+        raise NotImplementedError(
+            "per-head posteriors (per_head_gphp) are not ported yet "
+            "(ROADMAP queue A item 10)"
+        )
+    if cfg.backend not in ("kernel", "torch"):
+        raise ValueError(f"unknown acquisition backend {cfg.backend!r}")
+    backend = "torch" if differentiable else cfg.backend
+    vals = acq_score_multi(post, head, x, mode=mode, backend=backend)
+    return A.integrate_over_samples(vals)
+
+
+def optimize_acquisition_multi(
+    post: GPPosterior,  # shared-factor posterior (objective head resident)
+    head: MultiMetricHead,
+    anchors: torch.Tensor,  # (num_anchors, d) Sobol points in the unit cube
+    pending: torch.Tensor,  # (p, d) encoded pending candidates (may be padding)
+    pending_mask: torch.Tensor,  # (p,) bool
+    key: np.ndarray,
+    cfg: AcqOptConfig,
+    mode: str,  # "constrained" | "pareto" | "rungs" | "cost"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multi-metric analogue of ``optimize_acquisition``: the same Sobol
+    anchors → top-k → projected-Adam pipeline, scored by the multi-head
+    acquisition of ``mode`` over the shared-factor posterior."""
+    del key  # multi-metric modes are EI-based; no Thompson draws
+
+    def score(x: torch.Tensor, differentiable: bool) -> torch.Tensor:
+        return _acq_values_multi(
+            post, head, x, cfg, mode, differentiable=differentiable
+        )
 
     masked_acq = _pending_masked(score, pending, pending_mask, cfg)
     return _refine_and_rank(masked_acq, anchors, cfg)

@@ -27,16 +27,23 @@ One decision step (``suggest_batch``):
      space, de-duplicate, then fantasize the interim pick so the remaining
      slots are filled from one pipeline pass instead of k full pipelines.
 
+Multi-metric jobs (a ``MetricSet`` with M > 1 on the store: constrained EI
+or Pareto random-scalarization EI) and cost-aware jobs
+(``BOConfig.cost_aware``: EI per unit cost on a log-cost head) branch off
+after the shared cold start. Their extra heads ride the objective's cached
+factor — one batched solve for the M head alphas per decision — and anchors
+are scored by the fused ``acq_score_multi`` kernel.
+
 The store's rows stay numpy on the host and become float64 tensors on the
 engine's device at the GP boundary. The device is the suggester's
 (``device=None`` means the CUDA card; the CPU only when asked for). Random
 draws follow the JAX package's threefry key stream (``core/prng.py``), so
 the engine makes the reference's decisions and loads its ``state_dict``.
 
-Not ported yet, and refused with ``NotImplementedError``: multi-metric,
-multi-fidelity and cost-aware decisions, the subset posterior backend,
+Not ported yet, and refused with ``NotImplementedError`` (here or by the
+Tuner): multi-fidelity (rung-head) decisions, the subset posterior backend,
 per-head GPHP chains, MAP-II fitting and the service-owned cache pool/arena
-(ROADMAP queue A items 3 and 7–10).
+(ROADMAP queue A items 3, 7, 9 and 10).
 """
 
 from __future__ import annotations
@@ -49,9 +56,15 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng, telemetry
+from repro_torch.core.device import resolve_device
 from repro_torch.core.gp import gp as gplib
 from repro_torch.core.gp import params as gpparams
 from repro_torch.core.gp.fit import map_gphps, mcmc_gphps
+from repro_torch.core.gp.multi import (
+    MultiOutputPosterior,
+    predict_heads,
+    solve_head_alphas,
+)
 from repro_torch.core.gp.incremental import (
     grow_posterior,
     posterior_append,
@@ -65,7 +78,12 @@ from repro_torch.core.gp.slice_sampler import (
     SliceSamplerConfig,
 )
 from repro_torch.core.history import ObservationStore, bucket_size
-from repro_torch.core.optimize_acq import AcqOptConfig, optimize_acquisition
+from repro_torch.core.optimize_acq import (
+    AcqOptConfig,
+    MultiMetricHead,
+    optimize_acquisition,
+    optimize_acquisition_multi,
+)
 from repro_torch.core.search_space import SearchSpace
 from repro_torch.core.sobol import SobolSequence
 
@@ -75,22 +93,9 @@ __all__ = [
     "EngineCache",
     "RandomSuggester",
     "SobolSuggester",
-    "resolve_device",
 ]
 
 Observation = Tuple[Mapping[str, Any], float]
-
-
-def resolve_device(device=None) -> torch.device:
-    """The engine's device: ``None`` means the CUDA card. Never falls back to
-    the CPU quietly — with no card visible, only ``device="cpu"`` runs."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "BOSuggester runs on the CUDA card by default and none is "
-            "visible; pass device='cpu' to run on the CPU"
-        )
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,11 +128,17 @@ class BOConfig:
     backend: Optional[str] = None  # constructor shorthand: folded into
     # acq.backend and reset to None
     fit_backend: str = "torch"  # gram backend for GPHP fitting/factorization
+    num_scalarizations: int = 16  # Pareto mode: simplex weight draws/decision
     fantasy_block: bool = False  # fold the pending set with one rank-k
     # blocked append instead of k rank-1 borders ("liar" strategy only)
     posterior_backend: str = "exact"  # "subset" waits (ROADMAP A10)
-    per_head_gphp: bool = False  # waits with multi-metric (ROADMAP A8/A10)
-    cost_aware: bool = False  # waits (ROADMAP A9)
+    per_head_gphp: bool = False  # waits (ROADMAP A10)
+    cost_aware: bool = False  # EI-per-unit-cost: a log-cost head rides the
+    # shared factor and EI is discounted by exp(-eta * zc(x)); off (the
+    # default) is the cost-blind engine
+    cost_cooling: float = 1.0  # eta scale for the cost discount; with a
+    # capped budget ledger attached the effective eta decays linearly with
+    # spend, so the cheap-first bias fades as the job closes on its budget
 
     def __post_init__(self):
         if self.backend is not None:
@@ -156,10 +167,8 @@ class BOConfig:
             raise NotImplementedError(
                 "per_head_gphp is not ported yet (ROADMAP queue A item 10)"
             )
-        if self.cost_aware:
-            raise NotImplementedError(
-                "cost_aware is not ported yet (ROADMAP queue A item 9)"
-            )
+        if self.cost_cooling < 0:
+            raise ValueError("cost_cooling must be non-negative")
 
     def fast(self) -> "BOConfig":
         """Cheaper MCMC settings for many-seed benchmark sweeps."""
@@ -239,7 +248,11 @@ class BOSuggester:
         self._chain_state: Optional[np.ndarray] = None
         self._store: Optional[ObservationStore] = store
         if store is not None:
-            self._check_store(store)
+            self._check_multimetric_config(store)
+        # budget ledger (``repro_torch.core.budget``) — attached by the Tuner
+        # when the job declares max_cost or cost_aware. None (the default)
+        # leaves the "budget" key out of state_dict.
+        self.budget_ledger = None
         self._wrapper_store: Optional[ObservationStore] = None
         self._wrapper_fps: List[Tuple[float, bytes]] = []
         self.cache = EngineCache()
@@ -260,19 +273,34 @@ class BOSuggester:
         return sub
 
     # ----------------------------------------------------------- store glue
-    @staticmethod
-    def _check_store(store: ObservationStore) -> None:
+    def _check_multimetric_config(self, store: ObservationStore) -> None:
+        """Reject config/store combinations the multi-metric and cost-aware
+        decision paths cannot serve — at bind time, not after the cold-start
+        trials have already spent their budget."""
         ms = getattr(store, "metrics", None)
-        if ms is not None and ms.num_metrics > 1:
-            raise NotImplementedError(
-                "multi-metric stores are not ported yet (ROADMAP queue A item 8)"
+        if ms is not None and ms.num_metrics > 1 and self.config.acq.acq != "ei":
+            raise ValueError(
+                "multi-metric jobs support acq='ei' only (constrained EI / "
+                f"random-scalarization EI), got {self.config.acq.acq!r}"
             )
+        if self.config.cost_aware:
+            if ms is not None and ms.num_metrics > 1:
+                raise ValueError(
+                    "cost_aware jobs are single-metric (the log-cost head "
+                    "rides the objective factor; M > 1 stores already spend "
+                    "the extra head slots on metrics)"
+                )
+            if self.config.acq.acq != "ei":
+                raise ValueError(
+                    "cost_aware jobs support acq='ei' only (EI-per-unit-"
+                    f"cost), got {self.config.acq.acq!r}"
+                )
 
     def bind_store(self, store: ObservationStore) -> None:
         """Attach the engine to a live observation store (the Tuner does this
         at construction and after restore). Cached GPHP samples survive a
         rebind; the factorization is rebuilt lazily against the new store."""
-        self._check_store(store)
+        self._check_multimetric_config(store)
         self._store = store
         self.cache.invalidate_factors()
 
@@ -393,6 +421,22 @@ class BOSuggester:
                 out.append(config)
             return out
 
+        ms = getattr(store, "metrics", None)
+        if ms is not None and ms.num_metrics > 1:
+            # multi-metric jobs branch off *after* the shared cold start
+            return self._decide_multi(store, k, pend_np, ms)
+        if cfg.cost_aware:
+            costs = store.own_costs()
+            n_fin = sum(
+                1 for c in costs
+                if c is not None and math.isfinite(c) and c > 0.0
+            )
+            if n_fin >= 2:
+                # the cost head needs two finite costs before its z-scoring
+                # is meaningful; below that the decision falls through to the
+                # cost-blind path (same RNG stream).
+                return self._decide_cost(store, k, pend_np, costs)
+
         x_all, y_std, _, _ = store.standardized()
         with telemetry.span("suggest.posterior", n=n):
             post = self._posterior_for(store, x_all, y_std)
@@ -440,17 +484,7 @@ class BOSuggester:
                 )
                 cands = cands.cpu().numpy()
             with telemetry.span("suggest.dedup", slot=slot):
-                seen = self._seen_matrix(x_all, pend_np, picks)
-                config = vec = None
-                for cand in cands:
-                    snapped = space.round_trip(cand)
-                    if len(seen) == 0 or np.min(
-                        np.max(np.abs(seen - snapped[None, :]), axis=1)
-                    ) > cfg.dedupe_tol:
-                        config, vec = space.decode(snapped), snapped
-                        break
-                if config is None:
-                    config, vec = self._quasi_random(seen)
+                config, vec = self._first_unseen(cands, x_all, pend_np, picks)
             out.append(config)
             picks.append(vec)
             if slot + 1 < k:
@@ -461,6 +495,272 @@ class BOSuggester:
                     pend_mask[n_excl] = True
                     n_excl += 1
         return out
+
+    def _first_unseen(
+        self, cands: np.ndarray, x_all: np.ndarray, pend_np: np.ndarray,
+        picks: Sequence[np.ndarray],
+    ) -> Tuple[Dict[str, Any], np.ndarray]:
+        """The best-ranked candidate that, snapped to the search space, lies
+        farther than ``dedupe_tol`` (L∞) from every seen, pending and
+        already-picked row; the Sobol fallback if none does."""
+        seen = self._seen_matrix(x_all, pend_np, picks)
+        for cand in cands:
+            snapped = self.space.round_trip(cand)
+            if len(seen) == 0 or np.min(
+                np.max(np.abs(seen - snapped[None, :]), axis=1)
+            ) > self.config.dedupe_tol:
+                return self.space.decode(snapped), snapped
+        return self._quasi_random(seen)
+
+    # ------------------------------------------------ multi-head decisions
+    def _decide_multi(
+        self, store: ObservationStore, k: int, pend_np: np.ndarray, ms
+    ) -> List[Dict[str, Any]]:
+        """One batched decision for an M>1 job (``repro_torch.core.
+        multimetric``), shared-factor layout.
+
+        The objective head (metric column 0) drives the exact single-metric
+        machinery — GPHP fitting, the cached factor, rank-1 appends, the
+        refit cadence. The extra heads cost one batched solve against that
+        cached factor per decision (``solve_head_alphas``) plus one matvec
+        per head inside scoring."""
+        cfg = self.config
+        n = store.num_observations
+        m_all = ms.num_metrics
+        num_con = ms.num_constraints
+        num_obj = ms.num_objectives
+
+        x_all, ystd, means, scales = store.standardized_metrics()
+        with telemetry.span("suggest.posterior", n=n):
+            post = self._posterior_for(
+                store, x_all, np.ascontiguousarray(ystd[:, 0])
+            )
+        size = post.x_train.shape[0]
+        y_live = np.zeros(size)
+        y_live[:n] = ystd[:, 0]
+        post = refresh_alpha(post, self._tensor(y_live))
+        self.cache.post = post
+        y_heads = np.zeros((m_all, size))
+        y_heads[:, :n] = ystd.T
+
+        # constraint thresholds + feasibility in standardized space
+        t_signed = ms.signed_thresholds()  # (C,) raw signed bounds
+        t_std = (t_signed - means[m_all - num_con :]) / scales[m_all - num_con :]
+        raw = store.metric_matrix()  # (n, M) signed raw own rows
+        if num_con:
+            feas_rows = np.all(
+                raw[:, m_all - num_con :] <= t_signed[None, :], axis=1
+            )
+        else:
+            feas_rows = np.ones(len(raw), dtype=bool)
+        has_feasible = bool(feas_rows.any())
+
+        mode = ms.mode
+        if mode == "constrained":
+            y_best = float(ystd[feas_rows, 0].min()) if has_feasible else 0.0
+            weights = np.zeros((0, num_obj))
+            y_best_w = np.zeros((0,))
+        else:
+            # ParEGO-style random scalarizations: Dirichlet(1) simplex draws
+            # from the engine RNG (checkpointed — restored jobs redraw the
+            # exact weights an uninterrupted engine would have).
+            w_draws = cfg.num_scalarizations
+            g = -np.log1p(-self._rng.random((w_draws, num_obj)))
+            weights = g / g.sum(axis=1, keepdims=True)
+            rows = feas_rows if has_feasible else np.ones(len(raw), bool)
+            sc = ystd[:n][rows][:, :num_obj] @ weights.T  # (n_r, W)
+            y_best_w = sc.min(axis=0)
+            y_best = 0.0
+
+        def make_head(alphas):
+            return MultiMetricHead(
+                alphas=alphas,
+                t_std=self._tensor(t_std),
+                y_best=y_best,
+                has_feasible=has_feasible,
+                weights=self._tensor(weights),
+                y_best_w=self._tensor(y_best_w),
+            )
+
+        return self._decide_heads(
+            store, k, pend_np, x_all, post, y_heads, mode, make_head
+        )
+
+    def _decide_cost(
+        self,
+        store: ObservationStore,
+        k: int,
+        pend_np: np.ndarray,
+        costs: List[Optional[float]],
+    ) -> List[Dict[str, Any]]:
+        """One batched decision under EI-per-unit-cost (``BOConfig.
+        cost_aware``): a GP head over *standardized log-cost* rides the
+        shared Cholesky factor, and anchors score
+
+            EIpu(x) = EI(x) · exp(−η · ẑc(x))
+
+        where ẑc is the posterior mean of the log-cost head and η =
+        ``cost_cooling`` · max(0, 1 − spent/max_cost) when a capped budget
+        ledger is attached (constant ``cost_cooling`` otherwise). Because ẑc
+        is standardized, uniform observed costs give ẑc ≡ 0 and EIpu == EI.
+
+        Own rows without a recorded cost — and warm-start parent rows, which
+        never carry one — impute target 0 (the head mean)."""
+        cfg = self.config
+        n = store.num_observations
+
+        x_all, y_std, _, _ = store.standardized()
+        with telemetry.span("suggest.posterior", n=n):
+            post = self._posterior_for(store, x_all, y_std)
+        size = post.x_train.shape[0]
+        y_live = np.zeros(size)
+        y_live[:n] = y_std
+        post = refresh_alpha(post, self._tensor(y_live))
+        self.cache.post = post
+
+        # standardized log-cost targets over the full store prefix
+        zc = np.zeros(n)
+        npar = n - len(costs)
+        fin = np.asarray(
+            [c is not None and math.isfinite(c) and c > 0.0 for c in costs],
+            dtype=bool,
+        )
+        logs = np.asarray(
+            [math.log(c) if ok else 0.0 for c, ok in zip(costs, fin)]
+        )
+        mean = float(logs[fin].mean())
+        std = float(logs[fin].std())
+        scale = std if std > 1e-12 else 1.0
+        zc[npar:][fin] = (logs[fin] - mean) / scale
+
+        y_heads = np.zeros((2, size))  # objective head + log-cost head
+        y_heads[0, :n] = y_std
+        y_heads[1, :n] = zc
+
+        ledger = self.budget_ledger
+        eta = cfg.cost_cooling
+        if ledger is not None and ledger.max_cost is not None:
+            eta *= max(0.0, 1.0 - ledger.spent / ledger.max_cost)
+        y_best = float(y_std[:n].min())
+
+        def make_head(alphas):
+            return MultiMetricHead(
+                alphas=alphas,
+                t_std=self._tensor(np.zeros((0,))),
+                y_best=y_best,
+                has_feasible=True,
+                weights=self._tensor([[eta]]),  # (1, 1): eta rides weights
+                y_best_w=self._tensor(np.zeros((1,))),  # unused in cost mode
+            )
+
+        return self._decide_heads(
+            store, k, pend_np, x_all, post, y_heads, "cost", make_head
+        )
+
+    def _decide_heads(
+        self, store: ObservationStore, k: int, pend_np: np.ndarray,
+        x_all: np.ndarray, post, y_heads: np.ndarray, mode: str,
+        make_head,
+    ) -> List[Dict[str, Any]]:
+        """Pending handling and the slot loop shared by the multi-head
+        decisions: solve the head alphas on the shared factor, fold pending
+        trials in as fantasies (or exclude them), then fill the k slots from
+        one pipeline pass, re-solving the head alphas after each fantasy."""
+        cfg = self.config
+        n_live = store.num_observations
+
+        def heads_for(work_now, y_block: np.ndarray):
+            with telemetry.span("suggest.head_alphas", heads=len(y_block)):
+                head_now = make_head(
+                    solve_head_alphas(work_now, self._tensor(y_block))
+                )
+                self._settle()
+            return head_now
+
+        d = self.space.encoded_dim
+        pend_buf = np.zeros((cfg.max_pending, d))
+        pend_mask = np.zeros(cfg.max_pending, dtype=bool)
+        n_excl = 0
+        work = post
+        head = heads_for(post, y_heads)
+        yh_work = [list(y_heads[j, :n_live]) for j in range(len(y_heads))]
+        if cfg.pending_strategy in ("liar", "kb") and len(pend_np) > 0:
+            for xp in pend_np:
+                work, yh_work = self._fantasy_append_multi(work, yh_work, xp)
+            head = heads_for(work, self._pad_heads(yh_work, work))
+        elif len(pend_np) > 0:
+            n_excl = min(len(pend_np), cfg.max_pending)
+            pend_buf[:n_excl] = pend_np[:n_excl]
+            pend_mask[:n_excl] = True
+
+        picks: List[np.ndarray] = []
+        out: List[Dict[str, Any]] = []
+        for slot in range(k):
+            with telemetry.span(
+                "suggest.acq_opt", backend=cfg.acq.backend, slot=slot
+            ):
+                cands, _ = optimize_acquisition_multi(
+                    work,
+                    head,
+                    self._anchors,
+                    self._tensor(pend_buf),
+                    self._tensor(pend_mask, dtype=torch.bool),
+                    self._next_key(),
+                    cfg.acq,
+                    mode,
+                )
+                cands = cands.cpu().numpy()
+            with telemetry.span("suggest.dedup", slot=slot):
+                config, vec = self._first_unseen(cands, x_all, pend_np, picks)
+            out.append(config)
+            picks.append(vec)
+            if slot + 1 < k:
+                if cfg.pending_strategy in ("liar", "kb"):
+                    work, yh_work = self._fantasy_append_multi(work, yh_work, vec)
+                    head = heads_for(work, self._pad_heads(yh_work, work))
+                elif n_excl < cfg.max_pending:
+                    pend_buf[n_excl] = vec
+                    pend_mask[n_excl] = True
+                    n_excl += 1
+        return out
+
+    @staticmethod
+    def _pad_heads(yh_work: List[List[float]], work) -> np.ndarray:
+        """Stack per-head target lists into the (M, bucket) padded block."""
+        size = work.x_train.shape[0]
+        out = np.zeros((len(yh_work), size))
+        for j, col in enumerate(yh_work):
+            out[j, : len(col)] = col
+        return out
+
+    def _fantasy_append_multi(
+        self, work, yh_work: List[List[float]], x_vec: np.ndarray
+    ):
+        """Multi-head fantasy fold: append the input once to the shared
+        factor and extend every head's target list with its fantasy value
+        (constant liar, or per-head kriging-believer means)."""
+        cfg = self.config
+        xq = self._tensor(x_vec)
+        if cfg.pending_strategy == "kb":
+            alphas_now = solve_head_alphas(
+                work, self._tensor(self._pad_heads(yh_work, work))
+            )
+            mu, _ = predict_heads(
+                MultiOutputPosterior(work, alphas_now),
+                xq[None, :],
+                backend=cfg.fit_backend,
+            )  # (S, M, 1)
+            vals = [float(v) for v in torch.mean(mu, dim=0)[:, 0].cpu().numpy()]
+        else:
+            vals = [cfg.liar_value] * len(yh_work)
+        live = len(yh_work[0])
+        if live >= work.x_train.shape[0]:
+            work = grow_posterior(work, bucket_size(live + 1))
+        work = posterior_append(work, xq, backend=cfg.fit_backend)
+        yh_work = [col + [v] for col, v in zip(yh_work, vals)]
+        y_pad = np.zeros(work.x_train.shape[0])
+        y_pad[: len(yh_work[0])] = yh_work[0]
+        return refresh_alpha(work, self._tensor(y_pad)), yh_work
 
     # ------------------------------------------------------ posterior cache
     def _posterior_for(
@@ -657,9 +957,10 @@ class BOSuggester:
     def state_dict(self) -> Dict[str, Any]:
         """JSON-safe image of everything drawn since construction, in the
         JAX package's schema: slice-chain state, numpy RNG and threefry key,
-        Sobol position, cached GPHP draws and refit-cadence counters. Pair
-        with the construction ``seed`` to rebuild this engine exactly."""
-        return {
+        Sobol position, cached GPHP draws and refit-cadence counters, and the
+        budget ledger when one is attached. Pair with the construction
+        ``seed`` to rebuild this engine exactly."""
+        state = {
             "chain_state": None
             if self._chain_state is None
             else self._chain_state.tolist(),
@@ -675,6 +976,11 @@ class BOSuggester:
             "cached_head_samples": None,
             "cached_head_n": 0,
         }
+        # budget ledger spend rides the same channel as in the reference; key
+        # absent when budgets are off
+        if self.budget_ledger is not None:
+            state["budget"] = self.budget_ledger.snapshot()
+        return state
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         """Install ``state_dict()`` output — this package's or the JAX
@@ -684,10 +990,10 @@ class BOSuggester:
             raise NotImplementedError(
                 "per-head GPHP state is not ported yet (ROADMAP queue A item 10)"
             )
-        if state.get("multi_fidelity") is not None or state.get("budget") is not None:
+        if state.get("multi_fidelity") is not None:
             raise NotImplementedError(
-                "multi-fidelity and budget state are not ported yet "
-                "(ROADMAP queue A items 6 and 9)"
+                "multi-fidelity state is not ported yet (ROADMAP queue A "
+                "items 7 and 9)"
             )
         cs = state.get("chain_state")
         self._chain_state = None if cs is None else np.asarray(cs, dtype=np.float64)
@@ -705,6 +1011,9 @@ class BOSuggester:
         self.cache.obs_since_refit = int(state.get("obs_since_refit", 0))
         self.cache.post = None  # refactorized lazily from cached samples
         self.cache.token = None
+        bud = state.get("budget")
+        if bud is not None and self.budget_ledger is not None:
+            self.budget_ledger.load_snapshot(bud)
         self._wrapper_store = None
         self._wrapper_fps = []
 

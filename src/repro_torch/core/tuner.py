@@ -35,7 +35,12 @@ Features implemented per the paper:
   * straggler mitigation: per-trial wall/virtual-time budget — over-budget
     trials are stopped (yielding their best-so-far) instead of blocking slots;
   * elasticity: ``max_parallel`` may be changed while running (the slot pool
-    grows/shrinks without invalidating tuner or GP state).
+    grows/shrinks without invalidating tuner or GP state);
+  * multi-metric jobs (``TuningJobConfig.metrics``: constrained or Pareto)
+    and budgets (``max_cost``, ``max_wallclock``, cost-aware suggesters).
+
+Not ported yet, and refused with ``NotImplementedError``: service mode
+(ROADMAP queue A item 7) and multi-fidelity jobs (items 7 and 9).
 """
 
 from __future__ import annotations
@@ -49,7 +54,9 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.budget import BudgetLedger
 from repro_torch.core.history import ObservationStore
+from repro_torch.core.multimetric import MetricSet, pareto_mask
 from repro_torch.core.trial import Trial, TrialState
 from repro_torch.core.warm_start import WarmStartPool
 
@@ -228,10 +235,9 @@ class Tuner:
         # multi-metric declaration (repro_torch.core.multimetric): None for the
         # paper's single-metric job.
         if job_config.metrics:
-            raise NotImplementedError(
-                "multi-metric jobs are not ported yet (ROADMAP queue A item 8)"
-            )
-        self.metric_set = None
+            self.metric_set = MetricSet(job_config.metrics)
+        else:
+            self.metric_set = None
         # stopping rules predate trial-id keying; detect support once so old
         # custom rules (positional should_stop(curve)) keep working.
         self._rule_stop_keyed = self._accepts_trial_id(
@@ -259,7 +265,8 @@ class Tuner:
                     "multi_fidelity supports single-metric jobs only"
                 )
             raise NotImplementedError(
-                "multi-fidelity jobs are not ported yet (ROADMAP queue A item 9)"
+                "multi-fidelity jobs are not ported yet (ROADMAP queue A items "
+                "7 and 9)"
             )
         # service mode (paper §3 Fig. 1): decisions route through a shared
         # SelectionService — store/cache are service-owned, siblings on the
@@ -351,11 +358,13 @@ class Tuner:
             getattr(getattr(self.suggester, "config", None), "cost_aware", False)
         )
         if self.config.max_cost is not None or cost_aware:
-            raise NotImplementedError(
-                "budgets and cost-aware jobs are not ported yet (ROADMAP "
-                "queue A item 6: core/budget.py)"
-            )
-        self.budget_ledger = None
+            self.budget_ledger = BudgetLedger(self.config.max_cost)
+            if hasattr(self.suggester, "budget_ledger"):
+                # rides BOSuggester.state_dict()["budget"]: checkpoints carry
+                # the spend with no new channel
+                self.suggester.budget_ledger = self.budget_ledger
+        else:
+            self.budget_ledger = None
         return store
 
     def _observe_terminal(self, trial: Trial) -> None:
@@ -703,8 +712,26 @@ class Tuner:
         ms = self.metric_set
         if ms is None:
             return []
-        raise NotImplementedError(
-            "multi-metric jobs are not ported yet (ROADMAP queue A item 8)"
+        cands = [
+            t for t in self.trials.values()
+            if t.state == TrialState.COMPLETED and t.metrics is not None
+            and all(
+                s.name in t.metrics and math.isfinite(float(t.metrics[s.name]))
+                for s in ms.specs
+            )
+        ]
+        if ms.num_constraints > 0:
+            cands = [t for t in cands if ms.feasible(t.metrics)]
+        if not cands:
+            return []
+        obj_specs = [s for s in ms.specs if s.objective]
+        y = np.asarray(
+            [[s.sign * float(t.metrics[s.name]) for s in obj_specs] for t in cands]
+        )
+        mask = pareto_mask(y)
+        return sorted(
+            (t for t, keep in zip(cands, mask) if keep),
+            key=lambda t: t.trial_id,
         )
 
     # -------------------------------------------------------- persistence

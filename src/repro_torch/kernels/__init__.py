@@ -19,7 +19,7 @@ from __future__ import annotations
 
 __all__ = ["LAUNCHES", "KERNEL_NAMES", "reset_launch_counts"]
 
-KERNEL_NAMES = ("acq_score", "matern52_gram", "matern52_cross")
+KERNEL_NAMES = ("acq_score", "acq_score_multi", "matern52_gram", "matern52_cross")
 
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 

@@ -29,7 +29,11 @@ import torch
 __all__ = ["SOURCES", "build_all", "library", "build_dir", "ptxas_report"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"acq_score": "acq_score.cu", "matern52": "matern52.cu"}
+SOURCES = {
+    "acq_score": "acq_score.cu",
+    "acq_score_multi": "acq_score_multi.cu",
+    "matern52": "matern52.cu",
+}
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -116,8 +120,18 @@ _ARGTYPES = {
     + [ctypes.c_void_p]
     + [ctypes.c_int] * 5
     + [ctypes.c_void_p],
+    "acq_score_multi": [ctypes.c_void_p] * 13
+    + [ctypes.c_double, ctypes.c_double]
+    + [ctypes.c_void_p]
+    + [ctypes.c_int] * 10
+    + [ctypes.c_void_p],
     "matern52_gram": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "matern52_cross": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+}
+# Host-side helpers (no launch): name -> (argtypes, restype).
+_HELPERS = {
+    "acq_score_multi_smem_bytes": ([ctypes.c_int] * 7, ctypes.c_longlong),
+    "acq_score_multi_smem_limit": ([ctypes.c_int], ctypes.c_longlong),
 }
 
 
@@ -141,5 +155,10 @@ def library(name: str) -> ctypes.CDLL:
             if fn is not None:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+    for entry, (argtypes, restype) in _HELPERS.items():
+        fn = getattr(lib, entry, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = restype
     _libs[name] = lib
     return lib

@@ -33,21 +33,27 @@
 // (anchor, train row) on top; the L⁻¹ reads (S·n²/2 values per anchor tile)
 // stream from L2.
 //
-// Instantiated for double (the engine's dtype) and float.
+// The walk itself (row blocks of L⁻¹ × column chunks, K* in shared memory)
+// lives in acq_walk.cuh, shared with acq_score_multi.cu. Instantiated for
+// double (the engine's dtype) and float.
 
-#include "matern52_common.cuh"
+#include "acq_walk.cuh"
 
 namespace {
 
-constexpr int TA = 32;    // anchors per block (one per lane)
-constexpr int BI = 64;    // rows of L⁻¹ per row block
-constexpr int BJ = 32;    // train rows per column chunk
-constexpr int WARPS = 8;  // threads per block = 32 · WARPS
-constexpr int ROWS_PER_THREAD = BI / WARPS;
-constexpr int J_PER_THREAD = BJ / WARPS;
+using namespace repro::walk;
+
+// One head: μ accumulates α_J·K*_J in a register on a chunk's first visit.
+template <typename T>
+struct OneHead {
+  const T* al;  // (n,) α of this sample
+  T mu;
+  __device__ void stage(int) {}
+  __device__ void add(int, int gj, T kv) { mu += al[gj] * kv; }
+};
 
 template <typename T>
-__global__ void __launch_bounds__(32 * WARPS)
+__global__ void __launch_bounds__(THREADS)
 acq_score_kernel(const T* __restrict__ anchors,  // (m, d)
                  const T* __restrict__ xt,       // (n, d)
                  const T* __restrict__ linv,     // (S, n, n)
@@ -62,90 +68,22 @@ acq_score_kernel(const T* __restrict__ anchors,  // (m, d)
                  T* __restrict__ out,            // (S, m)
                  int m, int n, int d, int acq) {
   extern __shared__ unsigned char smem_raw[];
-  const int ld = repro::odd_stride(d);
-  T* As = reinterpret_cast<T*>(smem_raw);  // TA × ld warped anchors
-  T* Xs = As + TA * ld;                    // BJ × ld warped train rows
-  T* Ks = Xs + BJ * ld;                    // BJ × TA K* chunk, [j][a]
-  T* Ls = Ks + BJ * TA;                    // BI × BJ block of L⁻¹
-  T* red = Ls + BI * BJ;                   // 2 × WARPS × TA partial sums
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T* red = smem + smem_elems(d);  // 2 × WARPS × TA partial sums
 
   const int s = blockIdx.y;
   const int a0 = blockIdx.x * TA;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;  // anchor within the tile
-  const int g = tid >> 5;     // warp: row / chunk-entry group
-  const T* ie = inv_ell + (size_t)s * d;
-  const T* pa = wa + (size_t)s * d;
-  const T* pb = wb + (size_t)s * d;
-  const T* po = won + (size_t)s * d;
-  const T* L = linv + (size_t)s * n * n;
-  const T* al = alpha + (size_t)s * n;
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x >> 5;
+  const size_t ps = (size_t)s * d;
   const T a2 = amp2[s];
 
-  for (int e = tid; e < TA * d; e += 32 * WARPS) {
-    const int r = e / d;
-    const int k = e - r * d;
-    const int ga = a0 + r;
-    As[r * ld + k] = ga < m ? repro::warp_scale(anchors[(size_t)ga * d + k], pa[k], pb[k], po[k], ie[k]) : T(0);
-  }
+  OneHead<T> head{alpha + (size_t)s * n, T(0)};
+  const T ss_part = variance_walk<T>(
+      anchors, xt, linv + (size_t)s * n * n, mask, inv_ell + ps, wa + ps,
+      wb + ps, won + ps, a2, m, n, d, a0, smem, head);
 
-  T mu_part = T(0);
-  T ss_part = T(0);
-  const T* my_anchor = As + lane * ld;
-
-  for (int i0 = 0; i0 < n; i0 += BI) {
-    T acc[ROWS_PER_THREAD];
-#pragma unroll
-    for (int q = 0; q < ROWS_PER_THREAD; ++q) acc[q] = T(0);
-    const int j_end = min(i0 + BI, n);
-    for (int j0 = 0; j0 < j_end; j0 += BJ) {
-      __syncthreads();  // previous chunk's Xs/Ks/Ls fully consumed
-      for (int e = tid; e < BJ * d; e += 32 * WARPS) {
-        const int r = e / d;
-        const int k = e - r * d;
-        const int gj = j0 + r;
-        Xs[r * ld + k] = gj < n ? repro::warp_scale(xt[(size_t)gj * d + k], pa[k], pb[k], po[k], ie[k]) : T(0);
-      }
-      for (int e = tid; e < BI * BJ; e += 32 * WARPS) {
-        const int r = e / BJ;
-        const int c = e - r * BJ;
-        const int gi = i0 + r;
-        const int gj = j0 + c;
-        Ls[e] = (gi < n && gj < n) ? L[(size_t)gi * n + gj] : T(0);
-      }
-      __syncthreads();
-      const bool first_visit = j0 >= i0;  // chunk J seen for the first time
-#pragma unroll
-      for (int q = 0; q < J_PER_THREAD; ++q) {
-        const int j = g + WARPS * q;
-        const int gj = j0 + j;
-        T kv = T(0);
-        if (gj < n) {
-          const T* xr = Xs + j * ld;
-          T r2 = T(0);
-          for (int k = 0; k < d; ++k) {
-            const T diff = my_anchor[k] - xr[k];
-            r2 += diff * diff;
-          }
-          kv = repro::matern52(r2, a2) * mask[gj];
-          if (first_visit) mu_part += al[gj] * kv;
-        }
-        Ks[j * TA + lane] = kv;
-      }
-      __syncthreads();
-      for (int j = 0; j < BJ; ++j) {
-        const T kv = Ks[j * TA + lane];
-#pragma unroll
-        for (int q = 0; q < ROWS_PER_THREAD; ++q) {
-          acc[q] += Ls[(g + WARPS * q) * BJ + j] * kv;
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < ROWS_PER_THREAD; ++q) ss_part += acc[q] * acc[q];
-  }
-
-  red[g * TA + lane] = mu_part;
+  red[g * TA + lane] = head.mu;
   red[(WARPS + g) * TA + lane] = ss_part;
   __syncthreads();
   if (g == 0 && a0 + lane < m) {
@@ -159,16 +97,8 @@ acq_score_kernel(const T* __restrict__ anchors,  // (m, d)
     T var = a2 - ss;
     var = var < T(1e-12) ? T(1e-12) : var;
     const T sigma = repro::f_sqrt(var);
-    T val;
-    if (acq == 0) {
-      const T gamma = (y_best - mu) / sigma;
-      const T cdf = T(0.5) * (T(1) + repro::f_erf(gamma / T(1.4142135623730951)));
-      const T pdf = T(0.3989422804014327) * repro::f_exp(T(-0.5) * gamma * gamma);
-      const T ei = sigma * (gamma * cdf + pdf);
-      val = ei < T(0) ? T(0) : ei;
-    } else {
-      val = kappa * sigma - mu;
-    }
+    const T val = acq == 0 ? repro::walk::ei_closed_form(mu, sigma, y_best)
+                           : kappa * sigma - mu;
     out[(size_t)s * m + a0 + lane] = val;
   }
 }
@@ -179,14 +109,12 @@ int launch(const void* anchors, const void* xt, const void* linv,
            const void* wa, const void* wb, const void* won, const void* amp2,
            double y_best, double kappa, void* out, int S, int m, int n, int d,
            int acq, void* stream) {
-  const int ld = repro::odd_stride(d);
-  const size_t smem =
-      ((size_t)TA * ld + (size_t)BJ * ld + BJ * TA + BI * BJ + 2 * WARPS * TA) * sizeof(T);
+  const size_t smem = (smem_elems(d) + 2 * WARPS * TA) * sizeof(T);
   if (smem > 48 * 1024) {
     cudaFuncSetAttribute(acq_score_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   }
   dim3 grid((m + TA - 1) / TA, S);
-  acq_score_kernel<T><<<grid, 32 * WARPS, smem, static_cast<cudaStream_t>(stream)>>>(
+  acq_score_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(anchors), static_cast<const T*>(xt),
       static_cast<const T*>(linv), static_cast<const T*>(alpha),
       static_cast<const T*>(mask), static_cast<const T*>(inv_ell),

@@ -187,10 +187,13 @@ def test_unported_options_refuse_clearly():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.BOConfig(posterior_backend="subset")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.BOConfig(cost_aware=True)
+        T.BOConfig(per_head_gphp=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):  # service mode
+        T.Tuner(space_of(T), objective, None, TSim(), T.TuningJobConfig(),
+                service=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.Tuner(space_of(T), objective, T.RandomSuggester(space_of(T)), TSim(),
-                T.TuningJobConfig(metrics=("loss",)))
+                T.TuningJobConfig(multi_fidelity=object()), service=object())
     sugg = T.BOSuggester(space_of(T), bo_config("torch", gphp_method="map"),
                          device="cpu")
     ts = space_of(T)

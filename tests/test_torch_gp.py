@@ -61,7 +61,7 @@ def both_posteriors(bucket, n_live, d, S, with_inverse=True, seed=0):
     x, y, mask = data(bucket, n_live, d, seed)
     packed = packed_draws(d, S, seed + 1)
     jp = JP.GPHyperParams.unpack(jnp.asarray(packed), d)
-    tp = convert.params_from_numpy(packed, d)
+    tp = convert.params_from_numpy(packed, d, device="cpu")
     fit_j = JG.fit_posterior_batch if S else JG.fit_gp
     fit_t = TG.fit_posterior_batch if S else TG.fit_gp
     jpost = fit_j(jnp.asarray(x), jnp.asarray(y), jp, jnp.asarray(mask),
@@ -91,7 +91,7 @@ def test_warp_and_gram(d):
     packed[2 * d + 2 :] = np.where(np.arange(d) % 2 == 0, 0.0, packed[2 * d + 2 :])
     packed[d + 2 : 2 * d + 2] = np.where(np.arange(d) % 2 == 0, 0.0, packed[d + 2 : 2 * d + 2])
     jp = JP.GPHyperParams.unpack(jnp.asarray(packed), d)
-    tp = convert.params_from_numpy(packed, d)
+    tp = convert.params_from_numpy(packed, d, device="cpu")
     np.testing.assert_allclose(
         TW.warp_inputs(t(x1), tp.log_warp_a, tp.log_warp_b).numpy(),
         np.asarray(JW.warp_inputs(jnp.asarray(x1), jp.log_warp_a, jp.log_warp_b)),
@@ -105,7 +105,7 @@ def test_warp_and_gram(d):
         )
     # sampled parameters: a leading batch axis stands in for vmap
     draws = packed_draws(d, 3, 8)
-    tb = convert.params_from_numpy(draws, d)
+    tb = convert.params_from_numpy(draws, d, device="cpu")
     got = TK.matern52_ard(t(x1), t(x2), tb).numpy()
     for s in range(3):
         js = JP.GPHyperParams.unpack(jnp.asarray(draws[s]), d)
@@ -150,7 +150,7 @@ def test_factorization_lml_predict(bucket, n_live, S):
     np.testing.assert_allclose(tvar.numpy(), np.asarray(jvar), rtol=1e-9, atol=1e-12)
     packed = packed_draws(d, 0, 11)
     got = TG.log_marginal_likelihood(
-        t(x), t(y), convert.params_from_numpy(packed, d), t(mask, torch.bool)
+        t(x), t(y), convert.params_from_numpy(packed, d, device="cpu"), t(mask, torch.bool)
     )
     want = JG.log_marginal_likelihood(
         jnp.asarray(x), jnp.asarray(y), JP.GPHyperParams.unpack(jnp.asarray(packed), d),
@@ -239,3 +239,23 @@ def test_mcmc_gphps_same_key_same_samples(seed):
                           np.asarray(key), TSC(**TINY))
     assert got.shape == want.shape == (3, 3 * d + 2)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+
+
+def test_convert_defaults_to_the_card():
+    """``params_from_numpy``/``posterior_from_numpy`` run on the card unless
+    asked for the CPU, as every entry point of the port does."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the default device is usable")
+    d = 3
+    packed = packed_draws(d, 2, seed=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.params_from_numpy(packed, d)
+    blob = convert.posterior_to_numpy(
+        TG.fit_posterior_batch(*[t(a) for a in data(8, 5, d)[:2]],
+                               convert.params_from_numpy(packed, d, device="cpu"),
+                               t(data(8, 5, d)[2], torch.bool))
+    )
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.posterior_from_numpy(blob)
+    post = convert.posterior_from_numpy(blob, device="cpu")
+    assert post.chol.device.type == "cpu" and post.chol_inv is None

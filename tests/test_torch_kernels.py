@@ -45,7 +45,7 @@ def _posterior(bucket, n_live, d, S, seed=0):
         jnp.asarray(x), jnp.asarray(y), JP.GPHyperParams.unpack(jnp.asarray(packed), d),
         jnp.asarray(mask), with_inverse=True,
     )
-    tpost = convert.posterior_from_numpy(convert.posterior_to_numpy(jpost))
+    tpost = convert.posterior_from_numpy(convert.posterior_to_numpy(jpost), device="cpu")
     anchors = rng.random((200, d))
     return jpost, tpost, anchors, float(y[:n_live].min())
 

@@ -33,7 +33,7 @@ def test_gram_plain_matches_ref_and_pallas(n, m, d, warp):
     x1, x2 = rng.random((n, d)), rng.random((m, d))
     packed = _params(d, 1, d)
     jp = JP.GPHyperParams.unpack(jnp.asarray(packed), d)
-    tp = convert.params_from_numpy(packed, d)
+    tp = convert.params_from_numpy(packed, d, device="cpu")
     got = matern52_gram(torch.as_tensor(x1), torch.as_tensor(x2), tp, warp=warp)
     assert got.dtype == torch.float64 and got.shape == (n, m)
     ref = np.asarray(matern52_gram_ref(jnp.asarray(x1), jnp.asarray(x2), jp, warp=warp))
@@ -47,7 +47,7 @@ def test_gram_and_cross_batched_over_samples():
     rng = np.random.default_rng(1)
     x1 = rng.random((20, d))
     packed = _params(d, S, 2)
-    tp = convert.params_from_numpy(packed, d)
+    tp = convert.params_from_numpy(packed, d, device="cpu")
     got = matern52_gram(torch.as_tensor(x1), torch.as_tensor(x1), tp).numpy()
     row = matern52_cross(torch.as_tensor(x1[3]), torch.as_tensor(x1), tp).numpy()
     assert got.shape == (S, 20, 20) and row.shape == (S, 20)
@@ -64,7 +64,7 @@ def test_cross_plain_matches_ref_and_pallas(m, d):
     xn, xt = rng.random(d), rng.random((m, d))
     packed = _params(d, 1, m)
     jp = JP.GPHyperParams.unpack(jnp.asarray(packed), d)
-    tp = convert.params_from_numpy(packed, d)
+    tp = convert.params_from_numpy(packed, d, device="cpu")
     got = matern52_cross(torch.as_tensor(xn), torch.as_tensor(xt), tp).numpy()
     ref = np.asarray(matern52_cross_ref(jnp.asarray(xn), jnp.asarray(xt), jp))
     pal = np.asarray(j_cross(jnp.asarray(xn), jnp.asarray(xt), jp))

@@ -60,18 +60,18 @@ def test_uniform_exact(seed, shape):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("shape", [(), (14,), (10, 8)])
+@pytest.mark.parametrize("shape", [(), (14,), (10, 8), (200_000,)])
 def test_normal_and_exponential_close(seed, shape):
     jkey = jax.random.split(jax.random.PRNGKey(seed))[0]
     key = np.asarray(jkey)
-    np.testing.assert_array_max_ulp(
-        prng.normal(key, shape), np.asarray(jax.random.normal(jkey, shape)),
-        maxulp=256,
-    )
+    want = np.asarray(jax.random.normal(jkey, shape))
+    if want.size >= 100_000:
+        assert np.abs(want).max() > 4.0  # the far tail is reached
+    np.testing.assert_array_max_ulp(prng.normal(key, shape), want, maxulp=4)
     np.testing.assert_array_max_ulp(
         prng.exponential(key, shape),
         np.asarray(jax.random.exponential(jkey, shape)),
-        maxulp=256,
+        maxulp=4,
     )
 
 
