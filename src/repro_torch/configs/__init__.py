@@ -1,0 +1,27 @@
+from repro_torch.configs.base import (
+    MambaSettings,
+    ModelConfig,
+    MoESettings,
+    RGLRUSettings,
+    ShapeConfig,
+    SHAPES,
+)
+from repro_torch.configs.registry import (
+    ARCHITECTURES,
+    get_config,
+    list_archs,
+    tiny,
+)
+
+__all__ = [
+    "MambaSettings",
+    "ModelConfig",
+    "MoESettings",
+    "RGLRUSettings",
+    "ShapeConfig",
+    "SHAPES",
+    "ARCHITECTURES",
+    "get_config",
+    "list_archs",
+    "tiny",
+]

@@ -8,10 +8,16 @@ the resulting numpy arrays into the port's tensors on a device:
 * ``posterior_from_numpy`` — a dict of ``x_train``, ``mask``, ``chol``,
   ``alpha``, packed ``params`` and optionally ``chol_inv`` →
   ``GPPosterior``;
-* ``posterior_to_numpy`` — the inverse, for comparing the two packages.
+* ``posterior_to_numpy`` — the inverse, for comparing the two packages;
+* ``lm_params_from_numpy`` / ``load_lm_params`` — the JAX ``Model.init``
+  tree of an LM (stacked ``stack/slot{i}_{kind}`` periods and
+  ``leftover/layer{i}_{kind}`` layers) → the port's per-layer parameters;
+* ``lm_cache_to_numpy`` / ``lm_cache_from_numpy`` — the port's per-layer
+  decode caches ↔ the JAX package's cache tree.
 
-Like every entry point of the port, both run on the CUDA card unless the
-caller passes ``device="cpu"``; with no card visible the default raises.
+Like every entry point of the port, they run on the CUDA card unless the
+caller passes ``device="cpu"`` (for the LM, the model's own device); with no
+card visible the default raises.
 
 A JAX ``BOSuggester.state_dict()`` needs no conversion: the port's
 ``BOSuggester.load_state_dict`` takes it unchanged (the threefry key stays a
@@ -20,7 +26,7 @@ uint32 pair, the GPHP draws packed float64 lists).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -29,7 +35,15 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.gp.gp import GPPosterior
 from repro_torch.core.gp.params import GPHyperParams
 
-__all__ = ["params_from_numpy", "posterior_from_numpy", "posterior_to_numpy"]
+__all__ = [
+    "params_from_numpy",
+    "posterior_from_numpy",
+    "posterior_to_numpy",
+    "lm_params_from_numpy",
+    "load_lm_params",
+    "lm_cache_to_numpy",
+    "lm_cache_from_numpy",
+]
 
 
 def params_from_numpy(
@@ -86,3 +100,122 @@ def posterior_to_numpy(post) -> Dict[str, Any]:
         "params": host(post.params.pack()),
         "chol_inv": host(post.chol_inv),
     }
+
+
+# ---------------------------------------------------------------------------
+# LM parameters and caches
+# ---------------------------------------------------------------------------
+def _layer_slots(cfg):
+    """(layer index, JAX group, JAX name, period or None) for every layer:
+    layer ``p·P + i`` is ``stack/slot{i}_{kind}`` at period ``p``; the
+    leftover layers follow as ``leftover/layer{i}_{kind}``."""
+    period = cfg.block_pattern
+    out = []
+    for p in range(cfg.num_periods):
+        for si, kind in enumerate(period):
+            out.append((p * len(period) + si, "stack", f"slot{si}_{kind}", p))
+    base = cfg.num_periods * len(period)
+    for li in range(cfg.num_leftover):
+        out.append((base + li, "leftover", f"layer{li}_{period[li]}", None))
+    return out
+
+
+def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    for key, val in tree.items():
+        name = f"{prefix}.{key}" if prefix else key
+        if isinstance(val, Mapping):
+            _flatten(val, name, out)
+        else:
+            out[name] = np.asarray(val)
+
+
+def lm_params_from_numpy(cfg, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The JAX package's ``Model.init`` tree (leaves convert with
+    ``np.asarray``) → ``{port parameter name: array}``: ``embed``, ``head``,
+    ``final_norm`` and ``blocks.{layer}.{ln1, attn.wq, mixer.w_x, mlp.w1,
+    …}``, each stacked slot unstacked into its layers."""
+    out: Dict[str, np.ndarray] = {}
+    _flatten({k: v for k, v in tree.items() if k not in ("stack", "leftover")}, "", out)
+    for layer, group, name, period in _layer_slots(cfg):
+        block: Dict[str, np.ndarray] = {}
+        _flatten(tree[group][name], "", block)
+        for key, val in block.items():
+            out[f"blocks.{layer}.{key}"] = val if period is None else val[period]
+    return out
+
+
+def load_lm_params(model, tree: Mapping[str, Any]):
+    """Allocate ``model``'s parameters on its device and copy the JAX
+    package's parameter tree into them (names, shapes and dtypes must
+    match). Returns the model."""
+    state = lm_params_from_numpy(model.cfg, tree)
+    model.materialize()
+    params = dict(model.named_parameters())
+    if set(params) != set(state):
+        raise ValueError(
+            f"parameter names differ: port only {sorted(set(params) - set(state))}, "
+            f"JAX only {sorted(set(state) - set(params))}"
+        )
+    with torch.no_grad():
+        for name, p in params.items():
+            src = torch.from_numpy(np.array(state[name]))
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)} vs {tuple(p.shape)}")
+            p.copy_(src.to(p.dtype))
+    return model
+
+
+def _host(t) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _cache_leaf_map(cache, fn):
+    if isinstance(cache, tuple):
+        return tuple(fn(c) for c in cache)
+    return {k: fn(v) for k, v in cache.items()}
+
+
+def lm_cache_to_numpy(cfg, caches: List[Any]) -> Dict[str, Any]:
+    """The port's per-layer caches → the JAX package's cache tree, as numpy
+    (bf16 widened to float32): ``stack/slot{i}_{kind}`` leaves stacked over
+    the periods, ``leftover/layer{i}_{kind}`` as they are. A KV cache is a
+    (k, v) tuple, an rglru cache a {"conv", "h"} dict."""
+    out: Dict[str, Any] = {}
+    per_slot: Dict[str, List[Any]] = {}
+    for layer, group, name, _ in _layer_slots(cfg):
+        host = _cache_leaf_map(caches[layer], _host)
+        if group == "stack":
+            per_slot.setdefault(name, []).append(host)
+        else:
+            out.setdefault("leftover", {})[name] = host
+    if per_slot:
+        stack = {}
+        for name, items in per_slot.items():
+            if isinstance(items[0], tuple):
+                stack[name] = tuple(np.stack([c[i] for c in items]) for i in range(len(items[0])))
+            else:
+                stack[name] = {k: np.stack([c[k] for c in items]) for k in items[0]}
+        out["stack"] = stack
+    return out
+
+
+def lm_cache_from_numpy(cfg, tree: Mapping[str, Any], dtype, device) -> List[Any]:
+    """The JAX package's cache tree (leaves convert with ``np.asarray``) →
+    the port's per-layer caches on ``device``: KV caches and rglru ``conv``
+    in ``dtype`` (the compute dtype), rglru ``h`` in float32."""
+    caches: List[Any] = [None] * cfg.num_layers
+
+    def leaf(x, period, key=None):
+        a = np.asarray(x)
+        a = a if period is None else a[period]
+        dt = torch.float32 if key == "h" else dtype
+        return torch.as_tensor(np.array(a, dtype=np.float32)).to(device=device, dtype=dt)
+
+    for layer, group, name, period in _layer_slots(cfg):
+        c = tree[group][name]
+        if isinstance(c, Mapping):
+            caches[layer] = {k: leaf(v, period, k) for k, v in c.items()}
+        else:
+            caches[layer] = tuple(leaf(v, period) for v in c)
+    return caches

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels of the port, with their plain PyTorch versions.
 
-Each kernel lives in a package of its own (``acq_score``, ``matern52``):
+Each kernel lives in a package of its own (``acq_score``, ``matern52``,
+``flash_attention``, ``rglru_scan``):
 
 * ``kernel.py`` — the wrapper. On a CPU tensor it runs the plain version; on
   a CUDA tensor it launches the kernel (built from ``csrc/`` at first use,
@@ -8,7 +9,9 @@ Each kernel lives in a package of its own (``acq_score``, ``matern52``):
 * ``plain.py`` — the same function written directly in PyTorch. The CPU
   tests and the on-card comparison use it; the main path on a card does not.
 * ``ops.py`` — the dispatcher the engine calls: padding and parameter
-  packing in the reference's layout.
+  packing in the reference's layout. The LM kernels need none, so the
+  model calls their ``kernel.py`` wrappers directly and their ``ops.py``
+  only says what the JAX wrapper did that has no counterpart.
 
 ``LAUNCHES`` counts kernel launches per kernel name; a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -19,7 +22,10 @@ from __future__ import annotations
 
 __all__ = ["LAUNCHES", "KERNEL_NAMES", "reset_launch_counts"]
 
-KERNEL_NAMES = ("acq_score", "acq_score_multi", "matern52_gram", "matern52_cross")
+KERNEL_NAMES = (
+    "acq_score", "acq_score_multi", "matern52_gram", "matern52_cross",
+    "flash_attention", "rglru_scan",
+)
 
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}
 

@@ -33,6 +33,8 @@ SOURCES = {
     "acq_score": "acq_score.cu",
     "acq_score_multi": "acq_score_multi.cu",
     "matern52": "matern52.cu",
+    "flash_attention": "flash_attention.cu",
+    "rglru_scan": "rglru_scan.cu",
 }
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -127,6 +129,11 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     "matern52_gram": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "matern52_cross": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    # q, k, v, out; B, S, Hq, Hkv, Dh, window; softcap; scale; stream
+    "flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    # a, g, h, h_last; B, S, di; stream
+    "rglru_scan": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 # Host-side helpers (no launch): name -> (argtypes, restype).
 _HELPERS = {
@@ -150,7 +157,7 @@ def library(name: str) -> ctypes.CDLL:
         build_all()
     lib = ctypes.CDLL(str(_lib_path(name)))
     for entry, argtypes in _ARGTYPES.items():
-        for suffix in ("f32", "f64"):
+        for suffix in ("f32", "f64", "bf16"):
             fn = getattr(lib, f"{entry}_{suffix}", None)
             if fn is not None:
                 fn.argtypes = argtypes

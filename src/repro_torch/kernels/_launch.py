@@ -6,13 +6,19 @@ from typing import Sequence
 
 import torch
 
-_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+# what the GP kernels take; the LM kernels name their own
+GP_DTYPES = (torch.float32, torch.float64)
 
 
 def check_inputs(
-    name: str, tensors: Sequence[torch.Tensor], shapes: Sequence[tuple]
+    name: str,
+    tensors: Sequence[torch.Tensor],
+    shapes: Sequence[tuple],
+    dtypes: Sequence[torch.dtype] = GP_DTYPES,
 ) -> str:
-    """Validate device, dtype, shape and contiguity; return "cpu" or "cuda".
+    """Validate device, dtype (one of ``dtypes``, the same for every input),
+    shape and contiguity; return "cpu" or "cuda".
 
     A kernel output carries no gradient, so asking for one raises here
     instead of silently detaching."""
@@ -20,8 +26,9 @@ def check_inputs(
     dev = first.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    if first.dtype not in _DTYPES:
-        raise TypeError(f"{name}: dtype must be float32 or float64, got {first.dtype}")
+    if first.dtype not in dtypes:
+        allowed = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name}: dtype must be {allowed}, got {first.dtype}")
     for i, (t, shape) in enumerate(zip(tensors, shapes)):
         if t.device != dev:
             raise ValueError(f"{name}: input {i} on {t.device}, expected {dev}")
@@ -42,7 +49,7 @@ def check_inputs(
 
 
 def suffix(dtype: torch.dtype) -> str:
-    return _DTYPES[dtype]
+    return _SUFFIX[dtype]
 
 
 def raise_on_error(name: str, err: int) -> None:

@@ -1,0 +1,138 @@
+"""Decoder block of the port: token mixer (attn/swa/rglru) + dense MLP.
+
+One *block* = pre-norm mixer + residual, then (if the arch has an FFN)
+pre-norm MLP + residual. Gemma-3 style ``sandwich_norm`` adds post-norms on
+both sub-block outputs. The Mamba mixer and the MoE FFN are not ported yet
+and raise (ROADMAP A12).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+
+from repro_torch.models.attention import (
+    attention_decode,
+    attention_fwd,
+    attention_params,
+    init_kv_cache,
+)
+from repro_torch.models.common import ParamModule, rms_norm
+from repro_torch.models.mlp import mlp_fwd, mlp_params
+from repro_torch.models.rglru import (
+    init_rglru_cache,
+    rglru_decode,
+    rglru_fwd,
+    rglru_params,
+)
+
+__all__ = ["block_params", "block_fwd", "block_decode", "init_block_cache"]
+
+
+def _has_mlp(cfg) -> bool:
+    return cfg.moe is not None or cfg.d_ff > 0
+
+
+def _no_mamba(cfg) -> NotImplementedError:
+    return NotImplementedError(
+        f"{cfg.name}: the Mamba block is not ported yet; it comes with the "
+        "mamba_scan kernel (ROADMAP A12, B6)"
+    )
+
+
+def block_params(cfg, kind: str) -> ParamModule:
+    d = cfg.d_model
+    p = ParamModule()
+    p.declare("ln1", (d,), init="zeros")
+    if kind in ("attn", "swa"):
+        p.attn = attention_params(cfg)
+    elif kind == "mamba":
+        raise _no_mamba(cfg)
+    elif kind == "rglru":
+        p.mixer = rglru_params(cfg)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.sandwich_norm:
+        p.declare("ln1_post", (d,), init="zeros")
+    if _has_mlp(cfg):
+        p.declare("ln2", (d,), init="zeros")
+        p.mlp = mlp_params(cfg)
+        if cfg.sandwich_norm:
+            p.declare("ln2_post", (d,), init="zeros")
+    return p
+
+
+def _mixer_theta(cfg, kind: str) -> float:
+    if kind == "swa" and cfg.rope_theta_local is not None:
+        return cfg.rope_theta_local
+    return cfg.rope_theta
+
+
+def _mlp_residual(x, p, cfg):
+    if _has_mlp(cfg):
+        h = mlp_fwd(rms_norm(x, p.ln2, cfg.norm_eps), p.mlp, cfg)
+        if cfg.sandwich_norm:
+            h = rms_norm(h, p.ln2_post, cfg.norm_eps)
+        x = x + h
+    return x
+
+
+def block_fwd(
+    x: torch.Tensor,
+    p: ParamModule,
+    cfg,
+    kind: str,
+    positions: torch.Tensor,
+    impl: str = "kernel",
+) -> Tuple[torch.Tensor, Any]:
+    """Returns (x, mixer state): (k, v) for attention blocks, the decode
+    cache {"conv", "h"} for rglru blocks. The prefill turns the state into
+    the block's decode cache; the plain forward drops it."""
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    if kind in ("attn", "swa"):
+        window = cfg.window if kind == "swa" else 0
+        h, state = attention_fwd(
+            h, p.attn, cfg, positions, window=window,
+            theta=_mixer_theta(cfg, kind), impl=impl,
+        )
+    elif kind == "rglru":
+        h, state = rglru_fwd(h, p.mixer, cfg, impl=impl)
+    else:
+        raise _no_mamba(cfg)
+    if cfg.sandwich_norm:
+        h = rms_norm(h, p.ln1_post, cfg.norm_eps)
+    return _mlp_residual(x + h, p, cfg), state
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype, device):
+    if kind == "attn":
+        return init_kv_cache(cfg, batch, cache_len, dtype, device)
+    if kind == "swa":
+        return init_kv_cache(cfg, batch, min(cache_len, cfg.window), dtype, device)
+    if kind == "rglru":
+        return init_rglru_cache(cfg, batch, dtype, device)
+    if kind == "mamba":
+        raise _no_mamba(cfg)
+    raise ValueError(kind)
+
+
+def block_decode(
+    x: torch.Tensor, p: ParamModule, cfg, kind: str, cache, t: int
+) -> Tuple[torch.Tensor, Any]:
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    if kind in ("attn", "swa"):
+        window = cfg.window if kind == "swa" else 0
+        h, cache = attention_decode(
+            h, p.attn, cfg, cache, t, window=window, theta=_mixer_theta(cfg, kind),
+        )
+    elif kind == "rglru":
+        h, cache = rglru_decode(h, p.mixer, cfg, cache)
+    else:
+        raise _no_mamba(cfg)
+    if cfg.sandwich_norm:
+        h = rms_norm(h, p.ln1_post, cfg.norm_eps)
+    return _mlp_residual(x + h, p, cfg), cache
