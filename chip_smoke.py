@@ -37,12 +37,26 @@ of the JAX package. Phases:
    prefill); prefill, decode and weight-cast times; decode after prefill
    against the full forward one token longer; and the same requests through
    the plain torch composition, teacher-forced with the kernel run's
-   tokens, whose prefill logits, caches and decode logits must agree.
+   tokens, whose prefill logits, caches and decode logits must agree. Then
+   ``decode_attention``, which no model calls: its own path is one
+   flash-decode per swa layer on the prefill's wrapped ring caches at
+   t = 3000 (12 launches); then it is held against its plain version there
+   (bf16, per element), at gemma3-27b's global decode shape (32,768 slots,
+   bf16) and on the JAX package's sweep in f32 with one row left with no
+   valid slot, SDPA timed as the yardstick;
+7. mamba path — falcon-mamba-7b at its full published widths and depth (64
+   Mamba layers, 7.27e9 parameters, seeded on the card, after phase 6's
+   model is freed): ``mamba_scan`` against its plain version at the serving
+   shape and the JAX package's sweep (y and the last state), then the same
+   serving run, checks and torch composition as phase 6 (64 ``mamba_scan``
+   launches per prefill), then decode after prefill and the torch
+   composition's prefill once more with the model computing in float32.
 
-Launch counts are set to 0 just before each job of phases 4 and 5, and the
-serving run of phase 6, and read just after; each must launch every kernel
-of its path (jobs: and score only row buckets that phase 2 held against the
-plain version). Prints one line per case and each phase's wall time, then a
+Launch counts are set to 0 just before each job of phases 4 and 5, the
+serving runs of phases 6 and 7 and the flash-decode path, and read just
+after; each must launch every kernel of its path (jobs: and score only row
+buckets that phase 2 held against the plain version). Prints one line per
+case and each phase's wall time, then a
 JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
 any failure — including no visible card.
@@ -64,7 +78,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # Data-sheet peaks (NVIDIA H100 data sheet, dense, no sparsity), by part:
 # HBM bytes/s; FP64 and FP32 outside the tensor cores; FP64 on the tensor
 # cores ("f64_tc"), which a float64 matrix product can use; BF16 on the
-# tensor cores ("bf16").
+# tensor cores ("bf16"). main() adds "exp": f32 exponentials on the
+# special-function units, 16 per clock per SM on sm_90 (CUDA C++
+# Programming Guide, arithmetic instruction throughput), times the SM count
+# and the maximum SM clock the card reports.
 PEAKS = {
     "SXM": {"hbm": 3.35e12, "f64": 34e12, "f64_tc": 67e12, "f32": 67e12, "bf16": 989e12},
     "PCIe": {"hbm": 2.0e12, "f64": 26e12, "f64_tc": 51e12, "f32": 51e12, "bf16": 756e12},
@@ -78,6 +95,8 @@ REPLACES = {
     "matern52_cross": "src/repro/kernels/matern52/kernel.py:117",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:102",
     "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:55",
+    "mamba_scan": "src/repro/kernels/mamba_scan/kernel.py:63",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:75",
 }
 SOURCES = {
     "acq_score": "src/repro_torch/kernels/csrc/acq_score.cu",
@@ -86,11 +105,14 @@ SOURCES = {
     "matern52_cross": "src/repro_torch/kernels/csrc/matern52.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+    "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
 }
 # The path whose launches the JSON line reports for each kernel.
 PATH_OF = {"acq_score": "main", "acq_score_multi": "multi",
            "matern52_gram": "main", "matern52_cross": "main",
-           "flash_attention": "serve", "rglru_scan": "serve"}
+           "flash_attention": "serve", "rglru_scan": "serve",
+           "mamba_scan": "mamba", "decode_attention": "decode_check"}
 
 # Tolerances, kernel vs plain version on the same inputs, as max |Δ| over
 # max(1, max |plain|). float64: both sides are exact to ~1e-14; 1e-9 leaves
@@ -102,13 +124,15 @@ PATH_OF = {"acq_score": "main", "acq_score_multi": "multi",
 # feasibility product in [0, 1] (constrained, pareto), a weighted sum of EIs
 # with weights summing to 1 (rungs), or a discount applied to EI (cost) —
 # the same 1e-9 / 2e-2, relative to max(1, max |plain|).
-# flash_attention and rglru_scan: the reference's own Pallas tolerances
-# (tests/test_kernels.py) — 3e-5 in f32 for attention, 1e-4 for the scan
-# (1e-3 for the extreme decays, passed to ``check`` by that case).
+# flash_attention, decode_attention, rglru_scan and mamba_scan: the
+# reference's own Pallas tolerances (tests/test_kernels.py) — 3e-5 in f32 for
+# attention, 1e-4 for the scans (1e-3 for rglru's extreme decays, passed to
+# ``check`` by that case).
 TOL = {("acq_score", "f64"): 1e-9, ("acq_score", "f32"): 2e-2,
        ("acq_score_multi", "f64"): 1e-9, ("acq_score_multi", "f32"): 2e-2,
        ("matern52_gram", "f32"): 2e-5, ("matern52_cross", "f32"): 2e-5,
-       ("flash_attention", "f32"): 3e-5, ("rglru_scan", "f32"): 1e-4}
+       ("flash_attention", "f32"): 3e-5, ("rglru_scan", "f32"): 1e-4,
+       ("decode_attention", "f32"): 3e-5, ("mamba_scan", "f32"): 1e-4}
 # Held per element instead, as |Δ| ≤ rel·|plain| + abs: bf16 attention.
 # Kernel and plain version both sum in f32 (to ~1e-6 of each other) and
 # round once to bf16, so they differ by at most one bf16 ulp of the value
@@ -116,7 +140,8 @@ TOL = {("acq_score", "f64"): 1e-9, ("acq_score", "f32"): 2e-2,
 # over). One limit relative to the largest output would not do: the few
 # early rows, over few keys, set a maximum near 3, while the rows that
 # average ~2048 keys spread only ~0.04 around 0.
-TOL_ELEM = {("flash_attention", "bf16"): (2.0**-7, 2.0**-9)}
+TOL_ELEM = {("flash_attention", "bf16"): (2.0**-7, 2.0**-9),
+            ("decode_attention", "bf16"): (2.0**-7, 2.0**-9)}
 # Serve path (phase 6), kernels vs the plain torch composition on the same
 # weights and requests, as max |Δ| over max(1, max |plain|). The torch path
 # rounds the attention probabilities to bf16 before P·V (as the JAX
@@ -125,6 +150,19 @@ TOL_ELEM = {("flash_attention", "bf16"): (2.0**-7, 2.0**-9)}
 # its size, and the bf16 residual stream carries every layer's move on to
 # the logits, the states and the caches after it: 12 · 2^-8 ≈ 4.7e-2.
 SERVE_TOL = 5e-2
+# Phase 7 (falcon-mamba-7b) in bf16. It has no attention, so its kernel and
+# torch composition differ only where two f32 sums ~1e-7 apart round to
+# different bf16 values, but its 64 random-weight layers grow such one-ulp
+# moves: the first chip runs of this phase measured 2.737e-2 for decode
+# after prefill (both sides compute the same function) and 5.507e-2 for the
+# torch composition, past the 2e-2 bound set before them. The same checks
+# in float32 (the weights' own type, rounding 2^16 times finer) measured at
+# most 1.487e-5, so the semantics agree and the bf16 gap is rounding noise.
+# Phase 7 therefore holds the float32 checks at 1e-3, far above their noise
+# and far below any slip of semantics (a cast, a cache, a step), and the
+# bf16 ones at 1e-1, about twice the noise measured, against breakage.
+MAMBA_BF16_TOL = 1e-1
+F32_SERVE_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -140,6 +178,16 @@ def card_line() -> str:
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def part_of(name: str) -> str:
@@ -186,9 +234,12 @@ def phase_done(label: str, t0: float) -> None:
     print(f"phase {label}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-# Phase 6: the served model, its requests and the seed of weights and data.
+# Phases 6–7: the served models, their requests and the seed of weights and
+# data. Parameter counts are the JAX package's Model.abstract_params counts.
 SERVE_ARCH = "recurrentgemma-9b"
-SERVE_PARAMS = 7_483_805_696  # the JAX package's Model.abstract_params count
+SERVE_PARAMS = 7_483_805_696
+MAMBA_ARCH = "falcon-mamba-7b"
+MAMBA_PARAMS = 7_272_665_088
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 3000, 16
 SERVE_SEED = 2024
 
@@ -238,22 +289,224 @@ def device_profile(torch, label, fn, top=8) -> None:
               flush=True)
 
 
-def serve_phase(torch, np, K, check, peaks, dev) -> dict:
-    """Phase 6; returns the serving run's launch counts."""
-    import torch.nn.functional as F
+def rel_err(got, ref) -> float:
+    """max |got − ref| over max(1, max |ref|), in f32."""
+    return float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
 
+
+def clone_caches(caches):
+    return [tuple(t.clone() for t in c) if isinstance(c, tuple)
+            else {key: t.clone() for key, t in c.items()} for c in caches]
+
+
+def cache_errs(errs: dict, got, ref, suffix: str = "") -> None:
+    """Fold the largest ``rel_err`` of each kind of cache leaf (KV caches,
+    or a recurrent cache's ``conv``, ``h``, ``ssm``) into ``errs``."""
+    for g_cache, r_cache in zip(got, ref):
+        pairs = (zip(("kv caches", "kv caches"), g_cache, r_cache) if isinstance(r_cache, tuple)
+                 else ((f"{key} states", g_cache[key], r_cache[key]) for key in r_cache))
+        for leaf, g_, r_ in pairs:
+            errs[leaf + suffix] = max(errs.get(leaf + suffix, 0.0), rel_err(g_, r_))
+
+
+def serve_model(torch, K, arch, n_expected, expect, tol, dev, f32_tol=None):
+    """Serve ``SERVE_BATCH`` seeded ``SERVE_PROMPT``-token requests of
+    ``arch`` at its full published widths and depth (seeded weights made on
+    the card) for ``SERVE_NEW`` greedy tokens with the kernels; fail unless
+    the run launched exactly ``expect`` (kernel → count, one prefill). Then
+    time it step by step, profile one decode step and one prefill, time the
+    weight casts, hold decode after prefill against the forward one token
+    longer, and run the same requests through the plain torch composition,
+    teacher-forced with the kernel run's tokens: prefill logits, every cache
+    leaf and the decode logits within ``tol`` of max(1, max |torch|). With
+    ``f32_tol``, then the same in float32: decode after prefill against the
+    forward one token longer, and the prefill's logits and caches against
+    the torch composition's. Returns (the serving run's launch counts, the
+    model, its caches right after the prefill)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-    from repro_torch.kernels.flash_attention.plain import band_mask, flash_attention_plain
-    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_kernel
-    from repro_torch.kernels.rglru_scan.plain import rglru_scan_plain
     from repro_torch.models import build_model
     from repro_torch.models.common import rms_norm
     from repro_torch.training import greedy_generate, make_decode_step, make_prefill
 
+    cfg = get_config(arch)
+    B, S, NEW = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    t0 = time.perf_counter()
+    model = build_model(cfg, impl="kernel").init(SERVE_SEED)
+    torch.cuda.synchronize()
+    n_params = model.num_params()
+    kinds = ", ".join(f"{model.kinds.count(k)} {k}" for k in sorted(set(model.kinds)))
+    print(f"serve: {arch}, {len(model.kinds)} layers ({kinds}), {n_params} parameters "
+          f"({n_params * 4 / 1e9:.2f} GB f32), init {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
+    if n_params != n_expected:
+        fail(f"serve: {n_params} parameters, the JAX package counts {n_expected}")
+    cache_len = S + NEW
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+
+    # the main path: greedy_generate with the kernels, counts from 0
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tokens = greedy_generate(model, prompt, NEW, cache_len)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    print(f"serve: greedy_generate of {B} x {S}-token prompts, {NEW} new tokens each, "
+          f"in {wall:.3f} s; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+          f"launches {launches}", flush=True)
+    for kname in K.KERNEL_NAMES:
+        if launches[kname] != expect.get(kname, 0):
+            fail(f"serve: {launches[kname]} {kname} launches, expected "
+                 f"{expect.get(kname, 0)} (one prefill)")
+    if tuple(tokens.shape) != (B, NEW) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+        fail(f"serve: tokens of shape {tuple(tokens.shape)} outside the vocabulary")
+
+    # the same requests timed step by step (prefill, then each decode step)
+    prefill = make_prefill(model, cache_len)
+    step = make_decode_step(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if tuple(logits.shape) != (B, cfg.vocab_size) or not torch.isfinite(logits).all():
+        fail("serve: prefill logits not finite or of the wrong shape")
+    snapshot = clone_caches(caches)
+    k_logits = [logits]
+    step_ms = []
+    for i in range(NEW):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = step(caches, tokens[:, i], S + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.isfinite(logits).all():
+            fail(f"serve: decode step {i} logits not finite")
+        k_logits.append(logits)
+    # where a step's and a prefill's time goes (one more of each)
+    device_profile(torch, "decode step", lambda: step(caches, tokens[:, -1], S + NEW))
+    del caches
+    device_profile(torch, "prefill", lambda: prefill(prompt))
+    if not all(torch.equal(k_logits[i].argmax(-1), tokens[:, i]) for i in range(NEW)):
+        fail("serve: the timed pass picked other tokens than greedy_generate")
+    step_med = statistics.median(step_ms)
+
+    def cast_all():
+        for p in model.parameters():
+            p.to(torch.bfloat16)
+
+    cast_ms = time_ms(torch, cast_all, reps=5, warmup=1, hide_host=False)
+    # a decode step casts every block weight once, and the embedding twice
+    # when it is tied (input and head)
+    extra = model.embed if cfg.tie_embeddings else None
+    extra_ms = time_ms(torch, lambda: extra.to(torch.bfloat16), reps=5, warmup=1) if extra is not None else 0.0
+    print(f"serve: prefill {prefill_ms:.3f} ms ({B * S * 1e3 / prefill_ms:.1f} prompt "
+          f"tokens/s); decode per step median {step_med:.3f} ms, min {min(step_ms):.3f}, "
+          f"max {max(step_ms):.3f} ({B * 1e3 / step_med:.1f} tokens/s over {B} requests); "
+          f"whole generation {prefill_ms + sum(step_ms):.3f} ms", flush=True)
+    tied = (f"the tied embedding alone {extra_ms:.3f} ms, cast twice a step"
+            if extra is not None else "no tied embedding")
+    print(f"serve: casting every f32 weight to bf16 once takes {cast_ms:.3f} ms "
+          f"({tied}); a decode step's casts take about {cast_ms + extra_ms:.3f} ms "
+          f"of its {step_med:.3f} ms", flush=True)
+
+    # decode after prefill equals the full forward one token longer
+    with torch.inference_mode():
+        full = torch.cat([prompt, tokens[:, :1]], dim=1)
+        x = model._backbone(model._embed(full), model._positions(B, S + 1))
+        x = rms_norm(x, model.final_norm, cfg.norm_eps)
+        want = model._head(x[:, -1:, :]).float()[:, 0]
+        del full, x
+    rel = float((k_logits[1] - want).abs().max()) / max(1.0, float(want.abs().max()))
+    print(f"serve: decode after prefill vs the forward over S+1 tokens: max |Δ| "
+          f"{rel:.3e} of max(1, max |logit|) (tol {tol:.0e})", flush=True)
+    if rel > tol:
+        fail("serve: decode after prefill disagrees with the full forward")
+
+    # invariance: the plain torch composition, teacher-forced with the
+    # kernel run's tokens
+    model.impl = "torch"
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill(prompt)
+    torch.cuda.synchronize()
+    torch_prefill_ms = (time.perf_counter() - t0) * 1e3
+    if any(K.LAUNCHES.values()):
+        fail(f"serve: the torch composition launched kernels {dict(K.LAUNCHES)}")
+    errs = {"prefill logits": rel_err(logits, k_logits[0])}
+    cache_errs(errs, caches, snapshot)
+    errs["decode logits"] = 0.0
+    top1 = int((logits.argmax(-1) == k_logits[0].argmax(-1)).sum())
+    for i in range(NEW):
+        logits, caches = step(caches, tokens[:, i], S + i)
+        errs["decode logits"] = max(errs["decode logits"], rel_err(logits, k_logits[i + 1]))
+        top1 += int((logits.argmax(-1) == k_logits[i + 1].argmax(-1)).sum())
+    model.impl = "kernel"
+    print(f"serve invariance (kernels vs torch composition, teacher-forced): torch prefill "
+          f"{torch_prefill_ms:.3f} ms; max |Δ| over max(1, max |torch|): "
+          + ", ".join(f"{key} {val:.3e}" for key, val in errs.items())
+          + f" (tol {tol:.0e}); top-1 agreement {top1} of {B * (NEW + 1)}", flush=True)
+    if max(errs.values()) > tol:
+        fail("serve: the kernels and the torch composition disagree")
+    del caches, k_logits
+    if f32_tol is not None:
+        f32_checks(torch, K, model, prompt, tokens, f32_tol)
+    return launches, model, snapshot
+
+
+def f32_checks(torch, K, model, prompt, tokens, tol) -> None:
+    """``serve_model``'s decode-after-prefill and kernel-vs-torch checks with
+    the model computing in float32 (its weights' type, so no casts)."""
+    from repro_torch.models.common import rms_norm
+
+    cfg = model.cfg
+    B, S = prompt.shape
+    bf16 = model.compute_dtype
+    model.compute_dtype = torch.float32
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full = torch.cat([prompt, tokens[:, :1]], dim=1)
+        x = model._backbone(model._embed(full), model._positions(B, S + 1))
+        x = rms_norm(x, model.final_norm, cfg.norm_eps)
+        want = model._head(x[:, -1:, :]).float()[:, 0]
+        del full, x
+    logits, caches = model.prefill(prompt, S + 1)
+    snapshot = clone_caches(caches)
+    stepped, _ = model.decode_step(caches, tokens[:, 0], S)
+    del caches
+    errs = {"decode after prefill vs forward": rel_err(stepped, want)}
+    model.impl = "torch"
+    t_logits, t_caches = model.prefill(prompt, S + 1)
+    model.impl = "kernel"
+    model.compute_dtype = bf16
+    errs["prefill logits vs torch"] = rel_err(logits, t_logits)
+    cache_errs(errs, t_caches, snapshot, " vs torch")
+    torch.cuda.synchronize()
+    print(f"serve f32 (compute in float32, {time.perf_counter() - t0:.1f} s): max |Δ| over "
+          "max(1, max |ref|): " + ", ".join(f"{key} {val:.3e}" for key, val in errs.items())
+          + f" (tol {tol:.0e})", flush=True)
+    if max(errs.values()) > tol:
+        fail("serve f32: decode after prefill or the torch composition disagrees")
+
+
+def serve_phase(torch, np, K, check, peaks, dev) -> tuple:
+    """Phase 6; returns the serving run's launch counts and those of the
+    flash-decode run on its caches."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.plain import decode_attention_plain
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+    from repro_torch.kernels.flash_attention.plain import band_mask, flash_attention_plain
+    from repro_torch.kernels.rglru_scan.kernel import rglru_scan_kernel
+    from repro_torch.kernels.rglru_scan.plain import rglru_scan_plain
+    from repro_torch.models.attention import slot_valid
+
     cfg = get_config(SERVE_ARCH)
     gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
-    B, S, NEW = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    B, S = SERVE_BATCH, SERVE_PROMPT
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -321,132 +574,147 @@ def serve_phase(torch, np, K, check, peaks, dev) -> dict:
         del a, g, h, h_last
     torch.cuda.empty_cache()
 
-    # the model: full published widths and depth, seeded weights on the card
-    t0 = time.perf_counter()
-    model = build_model(cfg, impl="kernel").init(SERVE_SEED)
-    torch.cuda.synchronize()
-    n_params = model.num_params()
-    print(f"serve: {SERVE_ARCH}, {len(model.kinds)} layers ({model.kinds.count('rglru')} "
-          f"rglru, {model.kinds.count('swa')} swa), {n_params} parameters "
-          f"({n_params * 4 / 1e9:.2f} GB f32), init {time.perf_counter() - t0:.2f} s, "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated", flush=True)
-    if n_params != SERVE_PARAMS:
-        fail(f"serve: {n_params} parameters, the JAX package counts {SERVE_PARAMS}")
-    cache_len = S + NEW
-    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
-    expect = {"flash_attention": model.kinds.count("swa"),
-              "rglru_scan": model.kinds.count("rglru")}
+    launches, model, snapshot = serve_model(
+        torch, K, SERVE_ARCH, SERVE_PARAMS,
+        {"flash_attention": cfg.layer_kinds().count("swa"),
+         "rglru_scan": cfg.layer_kinds().count("rglru")}, SERVE_TOL, dev)
 
-    # the main path: greedy_generate with the kernels, counts from 0
+    # decode_attention, which no model calls (as in the JAX package): its
+    # path of its own is one flash-decode per swa layer on the real ring
+    # caches the prefill built (4 × 3000 tokens: the 2048-slot rings have
+    # wrapped), at decode time t = 3000 with the mask attention_decode
+    # builds there, through the public entry point; counts from 0.
+    hq, dh, t_dec = cfg.num_heads, cfg.head_dim, S
+    swa = [c for c, kind in zip(snapshot, model.kinds) if kind == "swa"]
+    q_dec = randn(B, hq, dh).to(swa[0][0].dtype)  # the compute dtype, bf16
+    ring_valid = slot_valid(swa[0][0].shape[1], t_dec, cfg.window, dev)
+    ring_valid = ring_valid[None, :].expand(B, -1).contiguous()
     K.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    tokens = greedy_generate(model, prompt, NEW, cache_len)
+    outs = [decode_attention(q_dec, k, v, ring_valid) for k, v in swa]
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    print(f"serve: greedy_generate of {B} x {S}-token prompts, {NEW} new tokens each, "
-          f"in {wall:.3f} s; peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
-          f"launches {launches}", flush=True)
-    for kname, n in expect.items():
-        if launches[kname] != n:
-            fail(f"serve: {launches[kname]} {kname} launches, expected {n} (one prefill)")
-    if tuple(tokens.shape) != (B, NEW) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
-        fail(f"serve: tokens of shape {tuple(tokens.shape)} outside the vocabulary")
+    decode_launches = dict(K.LAUNCHES)
+    print(f"decode check: decode_attention on the {len(swa)} swa layers' ring caches at "
+          f"t={t_dec} ({int(ring_valid[0].sum())} of {ring_valid.shape[1]} slots valid); "
+          f"launches {decode_launches}", flush=True)
+    if decode_launches["decode_attention"] != len(swa) or any(
+            n for kname, n in decode_launches.items() if kname != "decode_attention"):
+        fail(f"decode check: launches {decode_launches}, expected {len(swa)} decode_attention")
+    if not all(torch.isfinite(o).all() and o.shape == q_dec.shape for o in outs):
+        fail("decode check: outputs not finite or of the wrong shape")
+    del outs, model
 
-    # the same requests timed step by step (prefill, then each decode step)
-    prefill = make_prefill(model, cache_len)
-    step = make_decode_step(model)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, caches = prefill(prompt)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    if tuple(logits.shape) != (B, cfg.vocab_size) or not torch.isfinite(logits).all():
-        fail("serve: prefill logits not finite or of the wrong shape")
-    snapshot = [tuple(t.clone() for t in c) if isinstance(c, tuple)
-                else {key: t.clone() for key, t in c.items()} for c in caches]
-    k_logits = [logits]
-    step_ms = []
-    for i in range(NEW):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, caches = step(caches, tokens[:, i], S + i)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        if not torch.isfinite(logits).all():
-            fail(f"serve: decode step {i} logits not finite")
-        k_logits.append(logits)
-    # where a step's and a prefill's time goes (one more of each)
-    device_profile(torch, "decode step", lambda: step(caches, tokens[:, -1], S + NEW))
-    del caches
-    device_profile(torch, "prefill", lambda: prefill(prompt))
-    if not all(torch.equal(k_logits[i].argmax(-1), tokens[:, i]) for i in range(NEW)):
-        fail("serve: the timed pass picked other tokens than greedy_generate")
-    step_med = statistics.median(step_ms)
+    # decode_attention against its plain version: the ring caches above (bf16,
+    # held per element as flash attention is), gemma3-27b's global decode
+    # shape (bf16, every slot valid), and the JAX package's sweep
+    # (tests/test_kernels.py) in f32 at 3e-5 with one row of the first case
+    # left with no valid slot (0, as the TPU kernel gives; ROADMAP C9).
+    # Bound: bytes — q, the K and V caches, the mask and the output once —
+    # against 4·Dh FLOPs per (query head, slot) at the inputs' type's peak.
+    # Yardstick: one SDPA call with the mask as attn_mask and GQA.
+    g3 = get_config("gemma3-27b")
 
-    def cast_all():
-        for p in model.parameters():
-            p.to(torch.bfloat16)
+    def dec_inputs(b, hq_, hkv, dh_, c, fv, tdt, empty_row=False):
+        q = randn(b, hq_, dh_).to(tdt)
+        kc, vc = (randn(b, c, hkv, dh_).to(tdt) for _ in range(2))
+        valid = torch.rand((b, c), generator=gen, device=dev) < fv
+        valid[:, 0] = True
+        if empty_row:
+            valid[-1] = False
+        return q, kc, vc, valid
 
-    cast_ms = time_ms(torch, cast_all, reps=5, warmup=1, hide_host=False)
-    embed_cast_ms = time_ms(torch, lambda: model.embed.to(torch.bfloat16), reps=5, warmup=1)
-    print(f"serve: prefill {prefill_ms:.3f} ms ({B * S * 1e3 / prefill_ms:.1f} prompt "
-          f"tokens/s); decode per step median {step_med:.3f} ms, min {min(step_ms):.3f}, "
-          f"max {max(step_ms):.3f} ({B * 1e3 / step_med:.1f} tokens/s over {B} requests); "
-          f"whole generation {prefill_ms + sum(step_ms):.3f} ms", flush=True)
-    print(f"serve: casting every f32 weight to bf16 once takes {cast_ms:.3f} ms "
-          f"(the tied embedding alone {embed_cast_ms:.3f} ms); a decode step casts each "
-          f"block weight once and the embedding twice, about "
-          f"{cast_ms + embed_cast_ms:.3f} ms of its {step_med:.3f} ms", flush=True)
+    dec_cases = [("ring", lambda: (q_dec, swa[0][0], swa[0][1], ring_valid), True),
+                 ("gemma3-27b", lambda: dec_inputs(B, g3.num_heads, g3.num_kv_heads,
+                                                   g3.head_dim, 32768, 1.0, torch.bfloat16),
+                  False)]
+    sweep = ((2, 8, 2, 64, 1024, 1.0), (1, 16, 1, 128, 2048, 0.5),
+             (2, 4, 4, 80, 700, 0.8), (1, 14, 2, 64, 512, 1.0))
+    dec_cases += [("sweep", lambda case=case, i=i: dec_inputs(*case, torch.float32, i == 0),
+                   False) for i, case in enumerate(sweep)]
+    for label, make, main in dec_cases:
+        q, kc, vc, valid = make()
+        b, c, hkv, dh_ = kc.shape
+        hq_ = q.shape[1]
+        empty = not bool(valid[-1].any())
+        dt, es = ("bf16", 2) if q.dtype == torch.bfloat16 else ("f32", 4)
+        nbytes = es * (2 * b * hq_ * dh_ + 2 * b * c * hkv * dh_) + b * c
+        flops = {dt: 4 * dh_ * b * hq_ * c}
+        library = None
+        if label != "sweep":
+            qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
+            mask = valid[:, None, None, :]
 
-    # decode after prefill equals the full forward one token longer
-    with torch.inference_mode():
-        full = torch.cat([prompt, tokens[:, :1]], dim=1)
-        x = model._backbone(model._embed(full), model._positions(B, S + 1))
-        x = rms_norm(x, model.final_norm, cfg.norm_eps)
-        want = model._head(x[:, -1:, :]).float()[:, 0]
-        del full, x
-    rel = float((k_logits[1] - want).abs().max()) / max(1.0, float(want.abs().max()))
-    print(f"serve: decode after prefill vs the forward over S+1 tokens: max |Δ| "
-          f"{rel:.3e} of max(1, max |logit|) (tol {SERVE_TOL:.0e})", flush=True)
-    if rel > SERVE_TOL:
-        fail("serve: decode after prefill disagrees with the full forward")
+            def library():
+                return F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0]
+        check("decode_attention", dt, f"{label} B={b} C={c} Hq={hq_} Hkv={hkv} Dh={dh_}"
+              + (" (one row with no valid slot)" if empty else ""),
+              lambda: decode_attention(q, kc, vc, valid),
+              lambda: decode_attention_plain(q, kc, vc, valid),
+              nbytes, flops, main_shape=main, library=library)
+        if empty and float(decode_attention(q, kc, vc, valid)[-1].abs().max()) != 0.0:
+            fail("decode_attention: a row with no valid slot did not give 0")
+        del q, kc, vc, valid, library
+    del swa, snapshot
+    torch.cuda.empty_cache()
+    return launches, decode_launches
 
-    # invariance: the plain torch composition, teacher-forced with the
-    # kernel run's tokens
-    def rel_err(got, ref):
-        return float((got.float() - ref.float()).abs().max()) / max(1.0, float(ref.float().abs().max()))
 
-    model.impl = "torch"
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    logits, caches = prefill(prompt)
-    torch.cuda.synchronize()
-    torch_prefill_ms = (time.perf_counter() - t0) * 1e3
-    if any(K.LAUNCHES[kname] for kname in expect):
-        fail(f"serve: the torch composition launched kernels {dict(K.LAUNCHES)}")
-    errs = {"prefill logits": rel_err(logits, k_logits[0]), "kv caches": 0.0,
-            "rglru h": 0.0, "conv states": 0.0, "decode logits": 0.0}
-    for got, ref in zip(caches, snapshot):
-        if isinstance(ref, tuple):
-            errs["kv caches"] = max(errs["kv caches"], *(rel_err(g_, r_) for g_, r_ in zip(got, ref)))
+def mamba_phase(torch, K, check, dev) -> dict:
+    """Phase 7; returns the serving run's launch counts."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan.kernel import mamba_scan_kernel
+    from repro_torch.kernels.mamba_scan.plain import mamba_scan_plain
+
+    cfg = get_config(MAMBA_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    # mamba_scan: the serving shape (B, S, d_inner, d_state) with inputs as
+    # the block makes them (Δ = softplus of about −4.6, A = −(n+1)·e^a_log),
+    # then the JAX package's sweep (tests/test_kernels.py). y and the last
+    # state are each held at 1e-4 × max(1, max |plain|), the reference's
+    # tolerance. Bound: bytes — u and Δ read and y written (12 per element),
+    # b, c, A and the last state — against the exponentials, B·S·di·ds of
+    # them, at 16 per clock per SM (PEAKS "exp", from the card's SM count and
+    # clock). No single PyTorch call computes this scan: no library time.
+    scan_cases = [(SERVE_BATCH, SERVE_PROMPT, cfg.mamba.d_inner, cfg.mamba.d_state, True),
+                  (2, 64, 128, 8, False), (1, 300, 256, 16, False), (2, 128, 300, 16, False)]
+    for b, s, di, ds, main in scan_cases:
+        u = randn(b, s, di)
+        if main:
+            dt = F.softplus(-4.6 + randn(b, s, di))
+            a = -(torch.arange(1, ds + 1, device=dev, dtype=torch.float32)[None]
+                  * torch.exp(0.1 * randn(di, ds)))
         else:
-            errs["rglru h"] = max(errs["rglru h"], rel_err(got["h"], ref["h"]))
-            errs["conv states"] = max(errs["conv states"], rel_err(got["conv"], ref["conv"]))
-    top1 = int((logits.argmax(-1) == k_logits[0].argmax(-1)).sum())
-    for i in range(NEW):
-        logits, caches = step(caches, tokens[:, i], S + i)
-        errs["decode logits"] = max(errs["decode logits"], rel_err(logits, k_logits[i + 1]))
-        top1 += int((logits.argmax(-1) == k_logits[i + 1].argmax(-1)).sum())
-    model.impl = "kernel"
-    print(f"serve invariance (kernels vs torch composition, teacher-forced): torch prefill "
-          f"{torch_prefill_ms:.3f} ms; max |Δ| over max(1, max |torch|): "
-          + ", ".join(f"{key} {val:.3e}" for key, val in errs.items())
-          + f" (tol {SERVE_TOL:.0e}); top-1 agreement {top1} of {B * (NEW + 1)}", flush=True)
-    if max(errs.values()) > SERVE_TOL:
-        fail("serve: the kernels and the torch composition disagree")
-    del model, caches, snapshot, k_logits
+            dt = 0.1 * torch.rand((b, s, di), generator=gen, device=dev)
+            a = -2.0 * torch.rand((di, ds), generator=gen, device=dev)
+        b_t, c_t = randn(b, s, ds), randn(b, s, ds)
+        _, h_last = mamba_scan_kernel(u, dt, a, b_t, c_t)
+        torch.cuda.synchronize()
+        _, h_plain = mamba_scan_plain(u, dt, a, b_t, c_t)
+        h_err = float((h_last - h_plain).abs().max())
+        h_scale = max(1.0, float(h_plain.abs().max()))
+        print(f"mamba_scan f32 B={b} S={s} di={di} ds={ds}: last state max_abs_err "
+              f"{h_err:.3e} (tol {TOL[('mamba_scan', 'f32')]:.0e} x {h_scale:.3g})", flush=True)
+        if h_err > TOL[("mamba_scan", "f32")] * h_scale:
+            fail(f"mamba_scan B={b} S={s} di={di} ds={ds}: last state disagrees")
+        check("mamba_scan", "f32", f"B={b} S={s} di={di} ds={ds}",
+              lambda: mamba_scan_kernel(u, dt, a, b_t, c_t)[0],
+              lambda: mamba_scan_plain(u, dt, a, b_t, c_t)[0],
+              4 * (3 * b * s * di + 2 * b * s * ds + di * ds + b * di * ds),
+              {"exp": b * s * di * ds}, main_shape=main)
+        del u, dt, a, b_t, c_t, h_last, h_plain
+    torch.cuda.empty_cache()
+
+    launches, model, _ = serve_model(
+        torch, K, MAMBA_ARCH, MAMBA_PARAMS,
+        {"mamba_scan": cfg.layer_kinds().count("mamba")}, MAMBA_BF16_TOL, dev,
+        f32_tol=F32_SERVE_TOL)
+    del model
     torch.cuda.empty_cache()
     return launches
 
@@ -470,9 +738,11 @@ def main() -> None:
     card = card_line()
     print(card, flush=True)
     name = torch.cuda.get_device_name(0)
-    peaks = PEAKS[part_of(name)]
+    peaks = dict(PEAKS[part_of(name)])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    peaks["exp"] = 16 * sms * sm_clock_hz()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} device {name} "
+          f"python {sys.version.split()[0]} device {name} {sms} SMs "
           f"peaks {part_of(name)} {peaks}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -964,11 +1234,17 @@ def main() -> None:
 
     # 6. the LM serving path
     t_phase = time.perf_counter()
-    serve_launches = serve_phase(torch, np, K, check, peaks, dev)
+    serve_launches, decode_launches = serve_phase(torch, np, K, check, peaks, dev)
     phase_done("6 serve path", t_phase)
 
+    # 7. the falcon-mamba-7b serving path
+    t_phase = time.perf_counter()
+    mamba_launches = mamba_phase(torch, K, check, dev)
+    phase_done("7 mamba path", t_phase)
+
     path_launches = {"main": main_launches, "multi": multi_launches,
-                     "serve": serve_launches}
+                     "serve": serve_launches, "decode_check": decode_launches,
+                     "mamba": mamba_launches}
     line = {"kernels": []}
     for kname in K.KERNEL_NAMES:
         r = results.get(kname)

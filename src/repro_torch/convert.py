@@ -180,7 +180,8 @@ def lm_cache_to_numpy(cfg, caches: List[Any]) -> Dict[str, Any]:
     """The port's per-layer caches → the JAX package's cache tree, as numpy
     (bf16 widened to float32): ``stack/slot{i}_{kind}`` leaves stacked over
     the periods, ``leftover/layer{i}_{kind}`` as they are. A KV cache is a
-    (k, v) tuple, an rglru cache a {"conv", "h"} dict."""
+    (k, v) tuple, a mamba cache a {"conv", "ssm"} dict, an rglru cache a
+    {"conv", "h"} dict."""
     out: Dict[str, Any] = {}
     per_slot: Dict[str, List[Any]] = {}
     for layer, group, name, _ in _layer_slots(cfg):
@@ -200,16 +201,21 @@ def lm_cache_to_numpy(cfg, caches: List[Any]) -> Dict[str, Any]:
     return out
 
 
+_F32_STATES = ("h", "ssm")  # recurrent states kept in float32
+
+
 def lm_cache_from_numpy(cfg, tree: Mapping[str, Any], dtype, device) -> List[Any]:
     """The JAX package's cache tree (leaves convert with ``np.asarray``) →
-    the port's per-layer caches on ``device``: KV caches and rglru ``conv``
-    in ``dtype`` (the compute dtype), rglru ``h`` in float32."""
+    the port's per-layer caches on ``device``: KV caches and the ``conv``
+    windows in ``dtype`` (the compute dtype), the recurrent states — mamba
+    ``ssm``, rglru ``h`` — in float32, as the blocks' ``init_*_cache`` make
+    them."""
     caches: List[Any] = [None] * cfg.num_layers
 
     def leaf(x, period, key=None):
         a = np.asarray(x)
         a = a if period is None else a[period]
-        dt = torch.float32 if key == "h" else dtype
+        dt = torch.float32 if key in _F32_STATES else dtype
         return torch.as_tensor(np.array(a, dtype=np.float32)).to(device=device, dtype=dt)
 
     for layer, group, name, period in _layer_slots(cfg):

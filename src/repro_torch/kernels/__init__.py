@@ -1,7 +1,7 @@
 """Hand-written CUDA kernels of the port, with their plain PyTorch versions.
 
 Each kernel lives in a package of its own (``acq_score``, ``matern52``,
-``flash_attention``, ``rglru_scan``):
+``flash_attention``, ``rglru_scan``, ``mamba_scan``, ``decode_attention``):
 
 * ``kernel.py`` — the wrapper. On a CPU tensor it runs the plain version; on
   a CUDA tensor it launches the kernel (built from ``csrc/`` at first use,
@@ -11,7 +11,9 @@ Each kernel lives in a package of its own (``acq_score``, ``matern52``,
 * ``ops.py`` — the dispatcher the engine calls: padding and parameter
   packing in the reference's layout. The LM kernels need none, so the
   model calls their ``kernel.py`` wrappers directly and their ``ops.py``
-  only says what the JAX wrapper did that has no counterpart.
+  only says what the JAX wrapper did that has no counterpart
+  (``decode_attention/ops.py`` also names its entry point as the JAX
+  package does).
 
 ``LAUNCHES`` counts kernel launches per kernel name; a wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -24,7 +26,7 @@ __all__ = ["LAUNCHES", "KERNEL_NAMES", "reset_launch_counts"]
 
 KERNEL_NAMES = (
     "acq_score", "acq_score_multi", "matern52_gram", "matern52_cross",
-    "flash_attention", "rglru_scan",
+    "flash_attention", "rglru_scan", "mamba_scan", "decode_attention",
 )
 
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}

@@ -28,7 +28,9 @@ import torch
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.models.common import ParamModule, apply_rope, rms_norm, rope_freqs
 
-__all__ = ["attention_params", "attention_fwd", "attention_decode", "init_kv_cache"]
+__all__ = [
+    "attention_params", "attention_fwd", "attention_decode", "init_kv_cache", "slot_valid",
+]
 
 _NEG_INF = -2.0e38
 
@@ -132,6 +134,18 @@ def init_kv_cache(cfg, batch: int, cache_len: int, dtype, device) -> Tuple[torch
             torch.zeros(shape, dtype=dtype, device=device))
 
 
+def slot_valid(c: int, t: int, window: int, device) -> torch.Tensor:
+    """(C,) bool: which cache slots hold a visible key at time t. A ring
+    (window > 0): slot s holds position p = t − ((t − s) mod C), valid when
+    p ≥ max(0, t − window + 1); else slot s holds position s, valid when
+    s ≤ t."""
+    idx = torch.arange(c, device=device)
+    if window > 0:
+        pos_of_slot = t - torch.remainder(t - idx, c)
+        return (pos_of_slot >= max(0, t - window + 1)) & (pos_of_slot >= 0)
+    return idx <= t
+
+
 def attention_decode(
     x: torch.Tensor,  # (B, 1, D) current-token activations
     p: ParamModule,
@@ -155,15 +169,7 @@ def attention_decode(
     k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
 
-    # validity of each cache slot at time t
-    idx = torch.arange(c, device=x.device)
-    if window > 0:
-        # slot s holds absolute position p = t − ((t − s) mod C); valid if p ≥ 0
-        pos_of_slot = t - torch.remainder(t - idx, c)
-        valid = (pos_of_slot >= max(0, t - window + 1)) & (pos_of_slot >= 0)
-    else:
-        valid = idx <= t
-    mask = valid[None, None, :].expand(b, 1, c)
+    mask = slot_valid(c, t, window, x.device)[None, None, :].expand(b, 1, c)
 
     out = _gqa_scores_to_out(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, cfg)
     return _out_proj(out, p.wo, x.dtype), (k_cache, v_cache)

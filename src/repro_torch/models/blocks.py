@@ -1,9 +1,9 @@
-"""Decoder block of the port: token mixer (attn/swa/rglru) + dense MLP.
+"""Decoder block of the port: token mixer (attn/swa/mamba/rglru) + dense MLP.
 
 One *block* = pre-norm mixer + residual, then (if the arch has an FFN)
 pre-norm MLP + residual. Gemma-3 style ``sandwich_norm`` adds post-norms on
-both sub-block outputs. The Mamba mixer and the MoE FFN are not ported yet
-and raise (ROADMAP A12).
+both sub-block outputs. The MoE FFN is not ported yet and raises (ROADMAP
+A12).
 """
 
 from __future__ import annotations
@@ -19,6 +19,12 @@ from repro_torch.models.attention import (
     init_kv_cache,
 )
 from repro_torch.models.common import ParamModule, rms_norm
+from repro_torch.models.mamba import (
+    init_mamba_cache,
+    mamba_decode,
+    mamba_fwd,
+    mamba_params,
+)
 from repro_torch.models.mlp import mlp_fwd, mlp_params
 from repro_torch.models.rglru import (
     init_rglru_cache,
@@ -34,13 +40,6 @@ def _has_mlp(cfg) -> bool:
     return cfg.moe is not None or cfg.d_ff > 0
 
 
-def _no_mamba(cfg) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cfg.name}: the Mamba block is not ported yet; it comes with the "
-        "mamba_scan kernel (ROADMAP A12, B6)"
-    )
-
-
 def block_params(cfg, kind: str) -> ParamModule:
     d = cfg.d_model
     p = ParamModule()
@@ -48,7 +47,7 @@ def block_params(cfg, kind: str) -> ParamModule:
     if kind in ("attn", "swa"):
         p.attn = attention_params(cfg)
     elif kind == "mamba":
-        raise _no_mamba(cfg)
+        p.mixer = mamba_params(cfg)
     elif kind == "rglru":
         p.mixer = rglru_params(cfg)
     else:
@@ -87,8 +86,9 @@ def block_fwd(
     impl: str = "kernel",
 ) -> Tuple[torch.Tensor, Any]:
     """Returns (x, mixer state): (k, v) for attention blocks, the decode
-    cache {"conv", "h"} for rglru blocks. The prefill turns the state into
-    the block's decode cache; the plain forward drops it."""
+    cache {"conv", "ssm"} for mamba and {"conv", "h"} for rglru blocks. The
+    prefill turns the state into the block's decode cache; the plain forward
+    drops it."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind in ("attn", "swa"):
         window = cfg.window if kind == "swa" else 0
@@ -96,10 +96,10 @@ def block_fwd(
             h, p.attn, cfg, positions, window=window,
             theta=_mixer_theta(cfg, kind), impl=impl,
         )
-    elif kind == "rglru":
+    elif kind == "mamba":
+        h, state = mamba_fwd(h, p.mixer, cfg, impl=impl)
+    else:  # rglru
         h, state = rglru_fwd(h, p.mixer, cfg, impl=impl)
-    else:
-        raise _no_mamba(cfg)
     if cfg.sandwich_norm:
         h = rms_norm(h, p.ln1_post, cfg.norm_eps)
     return _mlp_residual(x + h, p, cfg), state
@@ -113,10 +113,10 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype, device):
         return init_kv_cache(cfg, batch, cache_len, dtype, device)
     if kind == "swa":
         return init_kv_cache(cfg, batch, min(cache_len, cfg.window), dtype, device)
+    if kind == "mamba":
+        return init_mamba_cache(cfg, batch, dtype, device)
     if kind == "rglru":
         return init_rglru_cache(cfg, batch, dtype, device)
-    if kind == "mamba":
-        raise _no_mamba(cfg)
     raise ValueError(kind)
 
 
@@ -129,10 +129,10 @@ def block_decode(
         h, cache = attention_decode(
             h, p.attn, cfg, cache, t, window=window, theta=_mixer_theta(cfg, kind),
         )
-    elif kind == "rglru":
+    elif kind == "mamba":
+        h, cache = mamba_decode(h, p.mixer, cfg, cache)
+    else:  # rglru
         h, cache = rglru_decode(h, p.mixer, cfg, cache)
-    else:
-        raise _no_mamba(cfg)
     if cfg.sandwich_norm:
         h = rms_norm(h, p.ln1_post, cfg.norm_eps)
     return _mlp_residual(x + h, p, cfg), cache

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 __all__ = [
+    "INITS",
     "ParamModule",
     "fill_param",
     "rms_norm",
@@ -31,6 +32,8 @@ __all__ = [
     "apply_rope",
 ]
 
+# the JAX Builder's rules (src/repro/models/common.py ``Builder.param``)
+INITS = ("normal", "zeros", "ones", "uniform", "constant")
 _SQRT2 = math.sqrt(2.0)
 # uniform bounds of a standard normal truncated to [-2, 2]: erf(±2/√2)
 _TN_LO = math.erf(-2.0 / _SQRT2)
@@ -39,10 +42,11 @@ _TN_HI = math.erf(2.0 / _SQRT2)
 
 class ParamModule(nn.Module):
     """A module whose parameters are declared with the JAX ``Builder``'s
-    initialisation rules that the ported blocks use (``normal`` — a
-    standard normal truncated to [−2, 2], times ``scale`` — ``zeros`` and
-    ``constant``). Parameters are created on the ``meta`` device and carry
-    no gradient: the port serves, it does not train (ROADMAP A12)."""
+    initialisation rules (``normal`` — a standard normal truncated to
+    [−2, 2], times ``scale`` — ``uniform`` on [−scale, scale], ``zeros``,
+    ``ones`` and ``constant``). Parameters are created on the ``meta``
+    device and carry no gradient: the port serves, it does not train
+    (ROADMAP A12)."""
 
     def __init__(self) -> None:
         super().__init__()
@@ -50,7 +54,7 @@ class ParamModule(nn.Module):
 
     def declare(self, name: str, shape: Tuple[int, ...], init: str = "normal",
                 scale: float = 1.0, dtype: torch.dtype = torch.float32) -> None:
-        if init not in ("normal", "zeros", "constant"):
+        if init not in INITS:
             raise ValueError(f"unknown init {init!r}")
         t = torch.empty(shape, dtype=dtype, device="meta")
         self.register_parameter(name, nn.Parameter(t, requires_grad=False))
@@ -69,18 +73,27 @@ def fill_param(p: torch.Tensor, init: str, scale: float, seed: int, path: str) -
     the same weights on the same device, whatever the order of filling.
     The truncated normal is the inverse-CDF construction ``jax.random``
     uses (uniform on [erf(−2/√2), erf(2/√2)] → √2·erf⁻¹), computed in
-    float32 and cast to the parameter's dtype; the bits differ from JAX's."""
+    float32 and cast to the parameter's dtype; the bits differ from JAX's.
+    A rule the JAX package does not know raises."""
     if init == "zeros":
         p.zero_()
+        return
+    if init == "ones":
+        p.fill_(1.0)
         return
     if init == "constant":
         p.fill_(scale)
         return
+    if init not in ("normal", "uniform"):
+        raise ValueError(f"unknown init {init!r}")
     gen = torch.Generator(device=p.device)
     gen.manual_seed(_path_seed(seed, path))
     out = p if p.dtype == torch.float32 else torch.empty_like(p, dtype=torch.float32)
-    out.uniform_(_TN_LO, _TN_HI, generator=gen)
-    out.erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0).mul_(scale)
+    if init == "uniform":
+        out.uniform_(-1.0, 1.0, generator=gen).mul_(scale)
+    else:
+        out.uniform_(_TN_LO, _TN_HI, generator=gen)
+        out.erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0).mul_(scale)
     if out is not p:
         p.copy_(out)
 

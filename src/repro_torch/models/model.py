@@ -150,8 +150,9 @@ class Model(ParamModule):
                 if kind in ("attn", "swa"):
                     window = cfg.window if kind == "swa" else 0
                     state = self._assemble_kv_cache(*state, seq, cache_len, window)
-                else:
-                    state = {"conv": state["conv"].to(self.compute_dtype), "h": state["h"]}
+                else:  # mamba {"conv", "ssm"} or rglru {"conv", "h"}: states in f32
+                    state = {key: t.to(self.compute_dtype) if key == "conv" else t
+                             for key, t in state.items()}
                 caches.append(state)
             x = rms_norm(x, self.final_norm, cfg.norm_eps)
             logits = self._head(x[:, -1:, :]).float()[:, 0, :]

@@ -83,7 +83,8 @@ def rglru_fwd(
 
     out = (h.to(cdt) * y_branch) @ p.w_out.to(cdt)
     dc = cfg.rglru.conv_width
-    return out, {"conv": xi_in[:, -(dc - 1):, :], "h": h_last}
+    # a copy: a view would keep the whole (B, S, di) projection alive
+    return out, {"conv": xi_in[:, -(dc - 1):, :].clone(), "h": h_last}
 
 
 # ---------------------------------------------------------------------------

@@ -5,9 +5,10 @@ with the JAX model's weights carried across by ``convert.load_lm_params``.
   all ten archs and their ``tiny()`` forms.
 * Prefill: last-position logits within 1e-4 (float32: the tiny configs
   compute in float32, so only summation order differs) and every decode
-  cache — ring-buffer KV, conv state, rglru ``h`` — within 1e-5. The port
-  takes ``h`` from the scan's last row; the JAX package recomputes it with
-  a second scan, and the two agree to the same 1e-5. Pairs: the port's
+  cache — ring-buffer KV, conv state, rglru ``h``, mamba ``ssm`` — within
+  1e-5. The port takes ``h`` and ``ssm`` from its scan's last step; the JAX
+  package recomputes them with a second scan, and the two agree to the same
+  1e-5. Pairs: the port's
   ``impl="kernel"`` (CPU tensors: the kernels' plain versions) against the
   JAX ``impl="pallas"`` (interpret mode), and ``impl="torch"`` against
   ``impl="xla"``.
@@ -20,7 +21,7 @@ with the JAX model's weights carried across by ``convert.load_lm_params``.
 
 Every arch the ported modules build runs (global and sliding-window
 attention, swiglu/gelu/relu2, partial rotary, QK-norm, sandwich norms,
-``embed_inputs``, RG-LRU); the Mamba and MoE archs must refuse.
+``embed_inputs``, RG-LRU, Mamba); the MoE archs must refuse.
 """
 
 import dataclasses
@@ -46,7 +47,7 @@ from repro_torch.training import greedy_generate
 torch.backends.cuda.matmul.allow_tf32 = False
 
 ARCHS = list_archs()
-UNPORTED = ("falcon-mamba-7b", "granite-moe-1b-a400m", "qwen3-moe-235b-a22b")
+UNPORTED = ("granite-moe-1b-a400m", "qwen3-moe-235b-a22b")
 SERVED = [a for a in ARCHS if a not in UNPORTED]
 IMPLS = [("kernel", "pallas"), ("torch", "xla")]
 B, S, STEPS = 2, 12, 8
