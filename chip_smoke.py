@@ -31,7 +31,9 @@ of the JAX package. Phases:
    full published widths and depth (38 layers, 7.48e9 parameters, seeded
    random weights made on the card): first ``flash_attention`` and
    ``rglru_scan`` against their plain versions at the serving shapes (and
-   the JAX package's kernel sweep), with SDPA timed as the yardstick; then
+   the JAX package's kernel sweep; bf16 attention also at each (G, Dh,
+   window) of the registry's attention archs), with SDPA timed as the
+   yardstick; then
    four 3000-token requests through ``greedy_generate`` for 16 tokens with
    the kernels (12 ``flash_attention`` and 26 ``rglru_scan`` launches per
    prefill); prefill, decode and weight-cast times; decode after prefill
@@ -42,8 +44,9 @@ of the JAX package. Phases:
    flash-decode per swa layer on the prefill's wrapped ring caches at
    t = 3000 (12 launches); then it is held against its plain version there
    (bf16, per element), at gemma3-27b's global decode shape (32,768 slots,
-   bf16) and on the JAX package's sweep in f32 with one row left with no
-   valid slot, SDPA timed as the yardstick;
+   bf16), on the JAX package's sweep in f32 with one row left with no
+   valid slot and at G = 1–16, Dh 64–256 in bf16, SDPA timed as the
+   yardstick;
 7. mamba path — falcon-mamba-7b at its full published widths and depth (64
    Mamba layers, 7.27e9 parameters, seeded on the card, after phase 6's
    model is freed): ``mamba_scan`` against its plain version at the serving
@@ -56,7 +59,8 @@ Launch counts are set to 0 just before each job of phases 4 and 5, the
 serving runs of phases 6 and 7 and the flash-decode path, and read just
 after; each must launch every kernel of its path (jobs: and score only row
 buckets that phase 2 held against the plain version). Prints one line per
-case and each phase's wall time, then a
+case (with the rate of the resource that bounds it and its share of the
+bound) and each phase's wall time, then a
 JSON line of per-kernel numbers, then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
 any failure — including no visible card.
@@ -134,21 +138,28 @@ TOL = {("acq_score", "f64"): 1e-9, ("acq_score", "f32"): 2e-2,
        ("flash_attention", "f32"): 3e-5, ("rglru_scan", "f32"): 1e-4,
        ("decode_attention", "f32"): 3e-5, ("mamba_scan", "f32"): 1e-4}
 # Held per element instead, as |Δ| ≤ rel·|plain| + abs: bf16 attention.
-# Kernel and plain version both sum in f32 (to ~1e-6 of each other) and
-# round once to bf16, so they differ by at most one bf16 ulp of the value
-# (≤ 2^-7·|plain|) plus the f32 noise near zero (2^-9 covers it many times
-# over). One limit relative to the largest output would not do: the few
-# early rows, over few keys, set a maximum near 3, while the rows that
+# The plain version keeps the probabilities P in f32; the kernels' tensor-
+# core bodies feed P to the bf16 MMA as two bf16 parts, hi = bf16(p) and
+# lo = bf16(p − hi), which keep ~16 of P's bits (P rounded once to bf16,
+# 8 bits, moves the output of rows over few keys past this bound:
+# ``python tests/test_torch_lm_kernels.py`` shows it at the serving shape's
+# band), and accumulate in f32. So both sides agree to ~2^-16 of the value
+# before each rounds once to bf16, and differ by at most one bf16 ulp of
+# the value (≤ 2^-7·|plain|) plus noise near zero (2^-9 covers it many
+# times over). One limit relative to the largest output would not do: the
+# few early rows, over few keys, set a maximum near 3, while the rows that
 # average ~2048 keys spread only ~0.04 around 0.
 TOL_ELEM = {("flash_attention", "bf16"): (2.0**-7, 2.0**-9),
             ("decode_attention", "bf16"): (2.0**-7, 2.0**-9)}
 # Serve path (phase 6), kernels vs the plain torch composition on the same
 # weights and requests, as max |Δ| over max(1, max |plain|). The torch path
-# rounds the attention probabilities to bf16 before P·V (as the JAX
-# package's XLA path does) while the kernel keeps them in f32, so each of
-# the 12 attention layers moves its output by about one bf16 ulp (2^-8) of
-# its size, and the bf16 residual stream carries every layer's move on to
-# the logits, the states and the caches after it: 12 · 2^-8 ≈ 4.7e-2.
+# rounds the attention probabilities P to bf16 once before P·V (as the JAX
+# package's XLA path does); the kernel rounds P to bf16 too, but as two
+# parts, hi + lo, that together keep ~16 bits. So the torch path's single
+# rounding moves each of the 12 attention layers' outputs by about one bf16
+# ulp (2^-8) of their size against the kernel's, and the bf16 residual
+# stream carries every layer's move on to the logits, the states and the
+# caches after it: 12 · 2^-8 ≈ 4.7e-2.
 SERVE_TOL = 5e-2
 # Phase 7 (falcon-mamba-7b) in bf16. It has no attention, so its kernel and
 # torch composition differ only where two f32 sums ~1e-7 apart round to
@@ -515,7 +526,14 @@ def serve_phase(torch, np, K, check, peaks, dev) -> tuple:
     # prompt that is not a multiple of the tile), the same in f32 at one
     # request (the second float4 group of a lane, Dh 128–255, and the band's
     # edge held at 3e-5), then the JAX package's sweep (tests/test_kernels.py)
-    # in f32 and its dtype case in both types.
+    # in f32 and its dtype case in both types. Then the bf16 tensor-core body
+    # at each (G, Dh, window) of the registry's attention archs, prompts
+    # ragged against its 128-row blocks and 64-key tiles: recurrentgemma (16,
+    # 256, 2048), h2o-danube3 (4, 120 — padded to 128 in shared memory —
+    # 4096), qwen2.5 (8, 128, global), gemma3 (2, 128, 1024 and global),
+    # minitron (3, 128, global), internvl2 (7, 64, global), musicgen (1, 64,
+    # global); one soft-capped case; and windows of 1, 9 and 40, inside one
+    # tile.
     # Bound: 4·Dh FLOPs per live pair of the band at the inputs' type's
     # peak (bf16 tensor cores; f32 outside them) against q/k/v/o bytes.
     flash_cases = [(B, S, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.window,
@@ -529,6 +547,13 @@ def serve_phase(torch, np, K, check, peaks, dev) -> tuple:
         (2, 200, 4, 2, 120, 0, 0.0))]
     flash_cases += [(1, 256, 4, 2, 128, 0, 0.0, tdt, False)
                     for tdt in (torch.bfloat16, torch.float32)]
+    flash_cases += [c + (torch.bfloat16, False) for c in (
+        (1, 2000, 16, 1, 256, 2048, 0.0), (2, 1000, 8, 2, 120, 4096, 0.0),
+        (1, 1900, 16, 2, 128, 0, 0.0), (1, 1700, 8, 4, 128, 1024, 0.0),
+        (2, 1100, 4, 2, 128, 0, 0.0), (1, 1300, 6, 2, 128, 0, 0.0),
+        (2, 1200, 14, 2, 64, 0, 0.0), (1, 1800, 4, 4, 64, 0, 0.0),
+        (1, 1000, 8, 4, 128, 1024, 50.0),
+        (2, 1000, 8, 2, 64, 1, 0.0), (2, 1000, 8, 2, 64, 9, 0.0), (2, 1000, 8, 2, 64, 40, 0.0))]
     for b, s, hq, hkv, dh, window, cap, tdt, main in flash_cases:
         q, k, v = (randn(b, s, h, dh).to(tdt) for h in (hq, hkv, hkv))
         dt, es = ("bf16", 2) if tdt == torch.bfloat16 else ("f32", 4)
@@ -605,24 +630,27 @@ def serve_phase(torch, np, K, check, peaks, dev) -> tuple:
 
     # decode_attention against its plain version: the ring caches above (bf16,
     # held per element as flash attention is), gemma3-27b's global decode
-    # shape (bf16, every slot valid), and the JAX package's sweep
+    # shape (bf16, every slot valid), the JAX package's sweep
     # (tests/test_kernels.py) in f32 at 3e-5 with one row of the first case
-    # left with no valid slot (0, as the TPU kernel gives; ROADMAP C9).
+    # left with no valid slot (0, as the TPU kernel gives; ROADMAP C9), then
+    # the bf16 tensor-core body at G = 1, 2, 3, 7, 8, 16 and head dims 64,
+    # 120, 128, 256, caches ragged against its 64-key tile, one case soft-
+    # capped and one row with no valid slot.
     # Bound: bytes — q, the K and V caches, the mask and the output once —
     # against 4·Dh FLOPs per (query head, slot) at the inputs' type's peak.
     # Yardstick: one SDPA call with the mask as attn_mask and GQA.
     g3 = get_config("gemma3-27b")
 
-    def dec_inputs(b, hq_, hkv, dh_, c, fv, tdt, empty_row=False):
+    def dec_inputs(b, hq_, hkv, dh_, c, fv, tdt, empty_row=False, softcap=0.0):
         q = randn(b, hq_, dh_).to(tdt)
         kc, vc = (randn(b, c, hkv, dh_).to(tdt) for _ in range(2))
         valid = torch.rand((b, c), generator=gen, device=dev) < fv
         valid[:, 0] = True
         if empty_row:
             valid[-1] = False
-        return q, kc, vc, valid
+        return q, kc, vc, valid, softcap
 
-    dec_cases = [("ring", lambda: (q_dec, swa[0][0], swa[0][1], ring_valid), True),
+    dec_cases = [("ring", lambda: (q_dec, swa[0][0], swa[0][1], ring_valid, 0.0), True),
                  ("gemma3-27b", lambda: dec_inputs(B, g3.num_heads, g3.num_kv_heads,
                                                    g3.head_dim, 32768, 1.0, torch.bfloat16),
                   False)]
@@ -630,8 +658,14 @@ def serve_phase(torch, np, K, check, peaks, dev) -> tuple:
              (2, 4, 4, 80, 700, 0.8), (1, 14, 2, 64, 512, 1.0))
     dec_cases += [("sweep", lambda case=case, i=i: dec_inputs(*case, torch.float32, i == 0),
                    False) for i, case in enumerate(sweep)]
+    # (b, hq, hkv, dh, c, share of valid slots, empty last row, softcap)
+    dec_bf16 = ((2, 4, 4, 64, 1000, 0.8, False, 0.0), (2, 16, 8, 128, 4001, 0.9, False, 0.0),
+                (1, 6, 2, 120, 777, 0.5, False, 0.0), (2, 14, 2, 64, 1500, 0.7, True, 0.0),
+                (1, 16, 2, 128, 3001, 1.0, False, 0.0), (2, 16, 1, 256, 2100, 0.6, False, 50.0))
+    dec_cases += [("grouped", lambda case=case: dec_inputs(*case[:6], torch.bfloat16, *case[6:]),
+                   False) for case in dec_bf16]
     for label, make, main in dec_cases:
-        q, kc, vc, valid = make()
+        q, kc, vc, valid, cap = make()
         b, c, hkv, dh_ = kc.shape
         hq_ = q.shape[1]
         empty = not bool(valid[-1].any())
@@ -639,7 +673,7 @@ def serve_phase(torch, np, K, check, peaks, dev) -> tuple:
         nbytes = es * (2 * b * hq_ * dh_ + 2 * b * c * hkv * dh_) + b * c
         flops = {dt: 4 * dh_ * b * hq_ * c}
         library = None
-        if label != "sweep":
+        if label in ("ring", "gemma3-27b"):
             qs, ks, vs = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
             mask = valid[:, None, None, :]
 
@@ -647,12 +681,19 @@ def serve_phase(torch, np, K, check, peaks, dev) -> tuple:
                 return F.scaled_dot_product_attention(
                     qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0]
         check("decode_attention", dt, f"{label} B={b} C={c} Hq={hq_} Hkv={hkv} Dh={dh_}"
+              + (f" softcap={cap}" if cap else "")
               + (" (one row with no valid slot)" if empty else ""),
-              lambda: decode_attention(q, kc, vc, valid),
-              lambda: decode_attention_plain(q, kc, vc, valid),
+              lambda: decode_attention(q, kc, vc, valid, softcap=cap),
+              lambda: decode_attention_plain(q, kc, vc, valid, cap),
               nbytes, flops, main_shape=main, library=library)
-        if empty and float(decode_attention(q, kc, vc, valid)[-1].abs().max()) != 0.0:
+        if empty and float(decode_attention(q, kc, vc, valid, softcap=cap)[-1].abs().max()) != 0.0:
             fail("decode_attention: a row with no valid slot did not give 0")
+        if label == "gemma3-27b":
+            # its partial and combine passes by device time, over five calls
+            # (a single call's first kernel can fall outside the trace)
+            device_profile(torch, "decode_attention gemma3-27b, 5 calls",
+                           lambda: [decode_attention(q, kc, vc, valid) for _ in range(5)],
+                           top=3)
         del q, kc, vc, valid, library
     del swa, snapshot
     torch.cuda.empty_cache()
@@ -837,8 +878,12 @@ def main() -> None:
         p_ms = time_ms(torch, pfn)
         call_ms = time_ms(torch, kfn, hide_host=False)
         b_ms, b_by = bound_ms(nbytes, flops, peaks)
+        # the rate of the resource that bounds the work, at kernel_ms
+        rate = (f"{nbytes / k_ms / 1e6:.1f} GB/s" if b_by == "bytes"
+                else f"{sum(flops.values()) / k_ms / 1e9:.2f} TFLOP/s")
         print(f"{kname} {dt} {label}: max_abs_err {err:.3e} ({tol_text}) "
-              f"kernel_ms {k_ms:.5f} plain_ms {p_ms:.5f} bound_ms {b_ms:.6f} "
+              f"kernel_ms {k_ms:.5f} ({rate}, {b_ms / k_ms:.1%} of bound) "
+              f"plain_ms {p_ms:.5f} bound_ms {b_ms:.6f} "
               f"({b_by}) call_ms {call_ms:.5f} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{kname} {dt} {label} disagrees with its plain version")

@@ -11,13 +11,57 @@
 // causally (k ≤ q) and, with window > 0, to the band q − k < window; the
 // softmax is taken online in f32 (running max m, running sum l, f32
 // accumulator) and the output is acc / l. KV head of query head h is
-// h / (Hq / Hkv): KV rows are addressed, never expanded.
+// h / (Hq / Hkv): KV rows are addressed, never expanded. Both bodies visit
+// only the KV tiles that meet a block's band — tiles wholly outside the
+// causal/window band are skipped, as the TPU kernel skips them
+// (kernel.py:50–56) — so the work is what the band holds, not S². The
+// ragged tail (S not a multiple of a tile) arrives as zeros in shared
+// memory (the TMA's out-of-bounds fill in the bf16 body, bounds checks in
+// the f32 body), never padded in device memory.
 //
-// Design. A block owns kBQ = 32 consecutive query positions of one
-// (batch, query head) and walks the KV tiles of kBK = 32 keys that meet its
-// band — tiles wholly outside the causal/window band are never visited, as
-// the TPU kernel skips them (kernel.py:50–56) — so the work is what the band
-// holds, not S². Eight warps own four query rows each. Per tile:
+// What bounds it on this card: 4·Dh FLOPs per live (query, key) pair against
+// q/k/v/o bytes — at the serving shape (Dh = 256, window 2048) about 1 KB of
+// work per 2 bytes moved, far above the H100's ~295 FLOP/byte ridge: the
+// operations, at the bf16 tensor-core peak.
+//
+// bf16 body (flash_wgmma, every served model): Hopper's warpgroup MMA fed
+// by the tensor memory accelerator. A block of two warpgroups (256
+// threads) owns kWgBQ = 128 query positions of one (batch, head), 64 a
+// warpgroup: one m64 wgmma tile. Both share each staged K/V tile of 64
+// keys: with 128 rows a block, the band of one batch element (3000 × 256 ×
+// 2 B × 2 = 3 MB of K and V) is read from L2 half as often as with 64, and
+// L2, not HBM, is what the re-reads cost. Per tile:
+//   * one thread issues two TMA box copies (K and V, 64 keys × the whole
+//     head) into the free one of two stages; an mbarrier counts their
+//     bytes. The box of a (8, S, Dh/8, H, B) view of the tensor lands in
+//     the no-swizzle core-matrix layout wgmma reads (attn_wgmma.cuh): no
+//     thread computes an address, and keys past S and the head's padding
+//     chunks (Dh 120 → 128) arrive as zeros;
+//   * S = Q·Kᵀ: DP/16 wgmma m64n64k16, Q and K straight from shared memory
+//     through descriptors; warpgroup 1 issues after warpgroup 0 (a named
+//     barrier), so that one's softmax overlaps the other's MMAs;
+//   * the elementwise mask runs only on tiles that cross the band's edge;
+//     the running max and sum of a row come from the four lanes that share
+//     it (quad shuffles); exponentials on the SFU in the exp2 domain; O is
+//     rescaled only when some row's max rose;
+//   * O += P·V: wgmma m64nDPk16 with P from the score registers as the A
+//     operand (never through shared memory) and V as an MN-major B. P is
+//     split into two bf16 parts, hi = bf16(p) and lo = bf16(p − hi), and
+//     P·V runs on both: one bf16 rounding of P alone breaks the per-element
+//     bound for rows over few keys (attn_mma.cuh); the split keeps ~16 bits
+//     of P for 1.5× the MMAs.
+// Budgets at Dh = 256: shared memory Q 2 × 32 KB + two stages of K and V,
+// 4 × 32 KB = 192 KB, one block an SM; registers: the O accumulator is 64
+// rows × 256 columns a warpgroup, 128 f32 a thread, plus 32 for the scores
+// and 32 for P's two parts (203 in all, no spills). Dh must be a multiple
+// of 8 (whole 16-byte chunks: the tensor map's strides) and at most 256,
+// and the inputs 16-byte aligned (the wrapper checks).
+//
+// f32 body (flash_kernel, the f32 entry only): SIMT on the FMA units, the
+// f32 tolerance (3e-5) being tighter than TF32 tensor cores could hold. A
+// block owns kBQ = 32 consecutive query positions of one (batch, query
+// head) and walks the KV tiles of kBK = 32 keys that meet its band. Eight
+// warps own four query rows each. Per tile:
 //   * the block stages K and V (converted to f32) in shared memory;
 //   * lane j of a warp owns key j of the tile: it forms its four rows'
 //     scores from float4 reads of its K row (row stride Dh + 4 floats, so the
@@ -27,28 +71,19 @@
 //     sum l stays a per-lane partial until the end;
 //   * P·V: each lane owns float4 groups of the head (lane + 32·g), and p_j is
 //     broadcast from lane j by shuffle.
-// No tensor cores, no TMA: a plain SIMT kernel, right first (wgmma is a later
-// redesign). The ragged tail (S not a multiple of 32) is handled by bounds
-// checks: rows and keys past S are staged as zeros and masked, never padded
-// in device memory.
-//
 // Shared memory (f32): Q 32×Dh + K 32×(Dh+4) + V 32×Dh floats — at Dh = 256
 // that is 32 + 33.3 + 32 = 97.3 KB, so two blocks (16 warps) fit in the
-// 227 KB an SM offers; at Dh = 128, 48.5 KB and four blocks. Dh must be a
-// multiple of 4 and at most 256 (the wrapper checks).
-//
-// What bounds it on this card: 4·Dh FLOPs per live (query, key) pair against
-// q/k/v/o bytes — at the main path's shape (Dh = 256, window 2048) about 1 KB
-// of work per 2 bytes moved, far above the H100's ~295 FLOP/byte ridge, so
-// the operations. The bound is priced at the bf16 tensor-core peak; this
-// kernel runs on the f32 FMA units and cannot reach it (see PERF.md).
+// 227 KB an SM offers. Dh must be a multiple of 4 and at most 256.
 //
 // Every entry point returns cudaGetLastError() after its launch (or the
 // error of cudaFuncSetAttribute).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "attn_wgmma.cuh"
 
 namespace {
 
@@ -59,17 +94,13 @@ constexpr int kBK = 32;              // keys per tile: one per lane
 constexpr int kThreads = kWarps * 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+// The SIMT body below is instantiated for f32 only (T = float).
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -257,6 +288,256 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
   return launch<T, 2>(q, k, v, out, B, S, Hq, Hkv, dh, window, softcap, scale, stream);
 }
 
+// ------------------------------------------------------------- bf16 body
+constexpr int kWgThreads = 256;  // two warpgroups
+constexpr int kWgBQ = 128;       // query rows per block: 64 a warpgroup
+constexpr int kWgBK = 64;        // keys per staged tile
+
+template <int DP>
+constexpr size_t wg_smem_bytes() {
+  return (size_t)(kWgBQ + 4 * kWgBK) * DP * sizeof(__nv_bfloat16);
+}
+
+// DP: the head dim rounded up to a multiple of 16 (the MMA depth).
+template <int DP>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int S,
+            int Hq, int Hkv, int dh, int window, float softcap, float scale) {
+  using bf16 = __nv_bfloat16;
+  // A box lands as [chunk][row][16 bytes]: chunk c of row r at c·CH + r·16.
+  // Q, K (K-major): LBO = CH (next 8 of the head), SBO = 128 (next 8 rows);
+  // V (MN-major): LBO = 128 (next 8 keys), SBO = CH (next 8 of the head).
+  constexpr int CH = kWgBK * 16;        // bytes of one chunk column of a 64-row box
+  constexpr int TILE = kWgBK * DP * 2;  // bytes of one 64-row box
+  constexpr int NO = DP / 2;            // O accumulator registers a thread
+  extern __shared__ __align__(128) uint4 smem_wg[];
+  char* Qs = reinterpret_cast<char*>(smem_wg);  // two boxes, one a warpgroup
+  char* Ks = Qs + 2 * TILE;                     // [2] boxes
+  char* Vs = Ks + 2 * TILE;                     // [2] boxes
+  __shared__ uint64_t full[2];  // a K/V stage has landed
+  __shared__ uint64_t qbar;     // Q has landed
+
+  const int b = blockIdx.y / Hq;
+  const int h = blockIdx.y - b * Hq;
+  const int kvh = h / (Hq / Hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgBQ;  // the longest bands first
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wg = warp >> 2;
+
+  const int q_last = min(q0 + kWgBQ, S) - 1;
+  const int t_lo = (window > 0 ? max(0, q0 - window + 1) : 0) / kWgBK;
+  const int t_hi = q_last / kWgBK;
+  // keys past S, rows past S and the head's padding chunks arrive as zeros
+  auto issue = [&](int t, int buf) {
+    attn::mbar_expect_tx(&full[buf], 2 * TILE);
+    attn::tma_box(Ks + buf * TILE, &kmap, t * kWgBK, kvh, b, &full[buf]);
+    attn::tma_box(Vs + buf * TILE, &vmap, t * kWgBK, kvh, b, &full[buf]);
+  };
+  if (tid == 0) {
+    attn::mbar_init(&full[0], 1);
+    attn::mbar_init(&full[1], 1);
+    attn::mbar_init(&qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    attn::mbar_expect_tx(&qbar, 2 * TILE);
+    attn::tma_box(Qs, &qmap, q0, h, b, &qbar);
+    attn::tma_box(Qs + TILE, &qmap, q0 + kWgBK, h, b, &qbar);
+    issue(t_lo, 0);
+  }
+
+  const float scale2 = scale * attn::kLog2e;
+  const int c2 = 2 * (lane & 3);
+  const int row0 = q0 + warp * 16 + (lane >> 2);  // this lane's rows: row0, row0 + 8
+  const char* qwg = Qs + wg * TILE;               // this warpgroup's 64 rows
+
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  attn::mbar_wait(&qbar, 0);
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int buf = (t - t_lo) & 1;
+    attn::mbar_wait(&full[buf], ((t - t_lo) >> 1) & 1);
+    __syncthreads();  // every warp is past tile t − 1: its buffer is free
+    if (tid == 0 && t < t_hi) issue(t + 1, buf ^ 1);
+    const char* kt = Ks + buf * TILE;
+    const char* vt = Vs + buf * TILE;
+
+    // S = Q·Kᵀ over the tile's 64 keys, one warpgroup MMA per 16 of the
+    // head; warpgroup 1 issues after warpgroup 0, so that one's softmax
+    // overlaps the other's MMAs
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    if (wg == 1) asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    attn::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      attn::wgmma_ss_n64(s, attn::wgmma_desc(qwg + kk * 2 * CH, CH, 128),
+                         attn::wgmma_desc(kt + kk * 2 * CH, CH, 128));
+    }
+    attn::wgmma_commit();
+    if (wg == 0) asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+    attn::wgmma_wait_all();
+    attn::fence_regs(s);
+    // scores in the exp2 domain, masked only on tiles that cross the band's
+    // edge (block-uniform); s[4j + i] is row row0 + 8·(i / 2), key
+    // k0 + 8j + c2 + i % 2
+    const int k0 = t * kWgBK;
+    const bool edge = k0 + kWgBK - 1 > q0 || (window > 0 && q0 + kWgBQ - 1 - k0 >= window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float x = softcap > 0.f ? attn::score_log2(s[4 * j + i], scale, softcap)
+                                : s[4 * j + i] * scale2;
+        if (edge) {
+          const int qpos = row0 + (i >> 1) * 8;
+          const int kpos = k0 + j * 8 + c2 + (i & 1);
+          const bool live = kpos <= qpos && (window <= 0 || qpos - kpos < window);
+          x = live ? x : -INFINITY;
+        }
+        s[4 * j + i] = x;
+      }
+    }
+
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      const float m_new = fmaxf(m[r], attn::quad_max(mx));
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // a row with no live key yet
+      alpha[r] = attn::exp2_fast(m[r] - m_use);              // 0 while m was -inf
+      m[r] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[4 * j + 2 * r] = attn::exp2_fast(s[4 * j + 2 * r] - m_use);
+        s[4 * j + 2 * r + 1] = attn::exp2_fast(s[4 * j + 2 * r + 1] - m_use);
+        sum += s[4 * j + 2 * r] + s[4 * j + 2 * r + 1];
+      }
+      l[r] = l[r] * alpha[r] + sum;
+    }
+    if (__any_sync(attn::kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < NO / 4; ++n) {
+        o[4 * n] *= alpha[0];
+        o[4 * n + 1] *= alpha[0];
+        o[4 * n + 2] *= alpha[1];
+        o[4 * n + 3] *= alpha[1];
+      }
+    }
+
+    // O += P·V, P = hi + lo straight from the score registers
+    unsigned ph[4][4], pl[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      attn::split_bf16(s[8 * kk], s[8 * kk + 1], ph[kk][0], pl[kk][0]);
+      attn::split_bf16(s[8 * kk + 2], s[8 * kk + 3], ph[kk][1], pl[kk][1]);
+      attn::split_bf16(s[8 * kk + 4], s[8 * kk + 5], ph[kk][2], pl[kk][2]);
+      attn::split_bf16(s[8 * kk + 6], s[8 * kk + 7], ph[kk][3], pl[kk][3]);
+    }
+    attn::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = attn::wgmma_desc(vt + kk * 256, 128, CH);
+      attn::wgmma_rs(o, ph[kk], dv);
+      attn::wgmma_rs(o, pl[kk], dv);
+    }
+    attn::wgmma_commit();
+    attn::wgmma_wait_all();
+    attn::fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      attn::fence_regs(ph[kk]);
+      attn::fence_regs(pl[kk]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = row0 + r * 8;
+    const float inv = 1.f / fmaxf(attn::quad_sum(l[r]), 1e-30f);
+    if (qpos >= S) continue;
+    bf16* orow = out + ((size_t)(b * S + qpos) * Hq + h) * dh;
+#pragma unroll
+    for (int n = 0; n < NO / 4; ++n) {
+      const int col = n * 8 + c2;
+      if (col < dh) {
+        *reinterpret_cast<unsigned*>(orow + col) =
+            attn::pack_bf16(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// (B, S, H, Dh) bf16 viewed as (8, S, Dh/8, H, B): boxes of 64 rows × the
+// whole head, padded with zero chunks up to DP/8.
+template <int DP>
+int head_map(CUtensorMap* map, const void* base, int B, int S, int H, int dh) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[5] = {8, (cuuint64_t)S, (cuuint64_t)(dh / 8), (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {(cuuint64_t)H * dh * 2, 16, (cuuint64_t)dh * 2,
+                                 (cuuint64_t)S * H * dh * 2};
+  const cuuint32_t box[5] = {8, kWgBK, DP / 8, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;  // a map the driver refused
+}
+
+template <int DP>
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S, int Hq,
+                 int Hkv, int dh, int window, float softcap, float scale, void* stream) {
+  CUtensorMap qmap, kmap, vmap;
+  int err = head_map<DP>(&qmap, q, B, S, Hq, dh);
+  if (err == 0) err = head_map<DP>(&kmap, k, B, S, Hkv, dh);
+  if (err == 0) err = head_map<DP>(&vmap, v, B, S, Hkv, dh);
+  if (err != 0) return err;
+  const size_t smem = wg_smem_bytes<DP>();
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_wgmma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kWgBQ - 1) / kWgBQ, B * Hq);
+  flash_wgmma<DP><<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, Hq, Hkv, dh, window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -267,11 +548,20 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
   return dispatch<float>(q, k, v, out, B, S, Hq, Hkv, dh, window, softcap, scale, stream);
 }
 
+// The tensor-core body only: a head dim it does not take is refused, never
+// sent to the f32 body.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                          int B, int S, int Hq, int Hkv, int dh, int window,
                          float softcap, float scale, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, B, S, Hq, Hkv, dh, window, softcap,
-                                 scale, stream);
+  if (dh < 8 || dh % 8 || dh > 256) return (int)cudaErrorInvalidValue;
+#define FLASH_WGMMA(DP) \
+  launch_wgmma<DP>(q, k, v, out, B, S, Hq, Hkv, dh, window, softcap, scale, stream)
+  if (dh <= 64) return FLASH_WGMMA(64);
+  if (dh <= 80) return FLASH_WGMMA(80);
+  if (dh <= 96) return FLASH_WGMMA(96);
+  if (dh <= 128) return FLASH_WGMMA(128);
+  return FLASH_WGMMA(256);
+#undef FLASH_WGMMA
 }
 
 }  // extern "C"

@@ -17,20 +17,26 @@ from repro_torch.kernels.decode_attention.plain import decode_attention_plain
 __all__ = ["decode_attention_kernel", "DTYPES", "MAX_HEAD_DIM", "split_plan"]
 
 DTYPES = (torch.bfloat16, torch.float32)
-MAX_HEAD_DIM = 256  # the kernel's register tile: two 16-byte chunks a lane in f32
-# the kernel's kBK and kRowsPerBlock (csrc/decode_attention.cu)
-TILE = 32  # keys per tile
-HEADS_PER_BLOCK = 16  # query heads a block owns
-MIN_TILES = 4  # tiles per cache split, at least
+MAX_HEAD_DIM = 256  # both bodies' register tiles
+HEADS_PER_BLOCK = 16  # query heads a block owns (both bodies)
+# Per body (csrc/decode_attention.cu): keys per tile, tiles per cache split
+# at least, and the blocks per SM the split count aims at. The tensor-core
+# body takes 64-key tiles and aims at eight blocks an SM, so that the
+# blocks of a long cache spread evenly over the SMs, and allows one tile a
+# split, so that a short cache still gives every SM a block; the SIMT body
+# keeps its 32-key tiles, four a split, two blocks an SM.
+PLAN = {torch.bfloat16: (64, 1, 8), torch.float32: (32, 4, 2)}
 
 
-def split_plan(b: int, hkv: int, g: int, c: int, sm_count: int) -> tuple:
-    """(splits, tiles per split) of the cache: enough blocks for about two
-    per SM, at least ``MIN_TILES`` tiles of ``TILE`` keys each, no split
-    empty."""
-    tiles = -(-c // TILE)
+def split_plan(b: int, hkv: int, g: int, c: int, sm_count: int,
+               dtype: torch.dtype = torch.float32) -> tuple:
+    """(splits, tiles per split) of the cache for the body that ``dtype``
+    runs, by its ``PLAN``: about its blocks per SM, at least its fewest
+    tiles a split, no split empty."""
+    tile, min_tiles, waves = PLAN[dtype]
+    tiles = -(-c // tile)
     blocks = b * hkv * -(-g // HEADS_PER_BLOCK)
-    nsplit = max(1, min(-(-tiles // MIN_TILES), -(-2 * sm_count // blocks)))
+    nsplit = max(1, min(-(-tiles // min_tiles), -(-waves * sm_count // blocks)))
     per = -(-tiles // nsplit)
     return -(-tiles // per), per
 
@@ -61,14 +67,14 @@ def decode_attention_kernel(q, k_cache, v_cache, valid, *, softcap: float = 0.0)
             f"decode_attention: a head of {dh} {q.dtype} must fill whole "
             f"16-byte chunks and be at most {MAX_HEAD_DIM} wide"
         )
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
-        raise ValueError("decode_attention: k and v caches must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("decode_attention: q and the k and v caches must be 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     fn = getattr(_build.library("decode_attention"), f"decode_attention_{suffix(q.dtype)}")
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    nsplit, per = split_plan(b, hkv, hq // hkv, c, sms)
+    nsplit, per = split_plan(b, hkv, hq // hkv, c, sms, q.dtype)
     part_m = torch.empty((nsplit, b * hq), dtype=torch.float32, device=q.device)
     part_l = torch.empty_like(part_m)
     part_acc = torch.empty((nsplit, b * hq, dh), dtype=torch.float32, device=q.device)

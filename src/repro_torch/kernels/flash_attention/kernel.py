@@ -2,7 +2,8 @@
 
 A CPU tensor runs the plain version (``plain.py``); a CUDA tensor launches
 the kernel from ``csrc/flash_attention.cu`` on the current stream, or
-raises. The output is allocated here with ``torch.empty``.
+raises. The output is allocated here with ``torch.empty``. bf16 runs the
+tensor-core body and f32 the SIMT body; neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from repro_torch.kernels.flash_attention.plain import flash_attention_plain
 __all__ = ["flash_attention_kernel", "DTYPES", "MAX_HEAD_DIM"]
 
 DTYPES = (torch.bfloat16, torch.float32)
-MAX_HEAD_DIM = 256  # the kernel's register tile: two float4 groups a lane
+MAX_HEAD_DIM = 256  # both bodies' register tiles
 
 
 def flash_attention_kernel(q, k, v, window: int = 0, softcap: float = 0.0) -> torch.Tensor:
@@ -29,11 +30,14 @@ def flash_attention_kernel(q, k, v, window: int = 0, softcap: float = 0.0) -> to
     shapes = ((b, s, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh))
     if check_inputs("flash_attention", (q, k, v), shapes, DTYPES) == "cpu":
         return flash_attention_plain(q, k, v, window, softcap)
-    if dh % 4 or dh > MAX_HEAD_DIM:
+    mult = 16 // q.element_size()  # rows of whole 16-byte chunks
+    if dh % mult or dh > MAX_HEAD_DIM:
         raise ValueError(
-            f"flash_attention: head dim {dh} must be a multiple of 4 and at "
-            f"most {MAX_HEAD_DIM}"
+            f"flash_attention: head dim {dh} must be a multiple of {mult} and at "
+            f"most {MAX_HEAD_DIM} in {q.dtype}"
         )
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -5,7 +5,11 @@ numpy-seeded inputs, at the cases and tolerances of ``tests/test_kernels.py``:
 * ``flash_attention`` (causal / windowed GQA attention with softcap): 3e-5
   in float32, 2e-2 in bfloat16 (one bf16 rounding of the output);
 * ``rglru_scan`` (h = a·h + g): 1e-4, and 1e-3 for the extreme decays;
-  the port's kernel also returns the last state, which must be h[:, −1].
+  the port's kernel also returns the last state, which must be h[:, −1];
+* the rounding of the bf16 tensor-core body of ``flash_attention``, which
+  runs only on the card: an emulation of its tile order and its two bf16
+  parts of P, held against the Pallas kernel on bf16 inputs to the per-
+  element bound the card holds it to (|Δ| ≤ 2^-7·|ref| + 2^-9).
 
 The wrappers never fall back from a CUDA tensor (with no card they raise),
 refuse inputs that require a gradient, and launch nothing on the CPU.
@@ -96,6 +100,92 @@ def test_flash_narrow_window(window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=3e-5)
 
 
+# bf16 attention on the card is held per element: |Δ| ≤ REL·|ref| + ABS
+# (chip_smoke.py's TOL_ELEM)
+REL, ABS = 2.0**-7, 2.0**-9
+
+
+def flash_tiles_emulated(q, k, v, window=0, softcap=0.0, split_p=True):
+    """The arithmetic of the bf16 body of ``csrc/flash_attention.cu`` in
+    torch: 128-row query blocks walk the 64-key tiles that meet their band in
+    order; per tile, f32 scores and an online softmax; P rounded to bf16
+    before P·V — as the kernel does, as hi = bf16(p) plus lo = bf16(p − hi)
+    (``split_p``), or once. q (B, S, Hq, Dh), k/v (B, S, Hkv, Dh), bf16 →
+    (B, S, Hq, Dh) bf16."""
+    b, s, hq, dh = q.shape
+    g = hq // k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)
+    kf, vf = (x.float().permute(0, 2, 1, 3).repeat_interleave(g, 1) for x in (k, v))
+    out = torch.empty_like(qf)
+    for q0 in range(0, s, 128):
+        rows = torch.arange(q0, min(q0 + 128, s))
+        m = torch.full((b, hq, len(rows), 1), -torch.inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, hq, len(rows), dh))
+        k_lo = max(0, q0 - window + 1) if window > 0 else 0
+        for t in range(k_lo // 64, int(rows[-1]) // 64 + 1):
+            keys = torch.arange(t * 64, min(t * 64 + 64, s))
+            sc = qf[:, :, rows] @ kf[:, :, keys].transpose(-1, -2) * dh**-0.5
+            if softcap > 0:
+                sc = softcap * torch.tanh(sc / softcap)
+            diff = rows[:, None] - keys[None, :]
+            live = (diff >= 0) & ((diff < window) if window > 0 else True)
+            sc = sc.masked_fill(~live, -torch.inf)
+            m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+            m_use = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+            p = torch.exp(sc - m_use)
+            hi = p.bfloat16().float()
+            pv = hi @ vf[:, :, keys]
+            if split_p:
+                pv = pv + (p - hi).bfloat16().float() @ vf[:, :, keys]
+            alpha = torch.exp(m - m_use)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + pv
+            m = m_new
+        out[:, :, rows] = acc / l.clamp_min(1e-30)
+    return out.permute(0, 2, 1, 3).bfloat16()
+
+
+def worst_of_limit(got, want) -> float:
+    """max over elements of |got − want| / (REL·|want| + ABS): at most 1
+    passes the card's per-element bound."""
+    got, want = (torch.as_tensor(np.asarray(x, np.float64)) for x in (got, want))
+    return float(((got - want).abs() / (REL * want.abs() + ABS)).max())
+
+
+def _bf16_qkv(b, s, hq, hkv, dh, seed):
+    """numpy-seeded inputs rounded to bf16: the torch tensors and the same
+    values as JAX bf16 arrays."""
+    ts = [torch.as_tensor(x).bfloat16() for x in _qkv(b, s, hq, hkv, dh, seed)]
+    return ts, [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in ts]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,dh,window,softcap",
+                         FLASH_CASES + [(1, 640, 4, 1, 256, 512, 0.0)])
+def test_flash_bf16_tile_rounding_meets_the_card_bound(b, s, hq, hkv, dh, window, softcap):
+    """The tensor-core body's one new rounding point, P in bf16 (as hi + lo)
+    in its tile order, stays within the card's per-element bound of the
+    Pallas kernel's f32 softmax on the same bf16 inputs; the long band (S =
+    640, window 512, Dh 256) is the serving shape's kind."""
+    (tq, tk, tv), (jq, jk, jv) = _bf16_qkv(b, s, hq, hkv, dh, seed=s + dh + 1)
+    got = flash_tiles_emulated(tq, tk, tv, window, softcap).float().numpy()
+    want = np.asarray(j_flash(jq, jk, jv, window=window, softcap=softcap, interpret=True)
+                      .astype(jnp.float32))
+    assert worst_of_limit(got, want) <= 1.0
+
+
+def test_flash_bf16_split_p_is_closer_than_one_rounding():
+    """Why the kernel splits P: on a band of few keys per row (window 9),
+    where one weight moves an output most, the bf16 hi + lo parts stay
+    closer to the f32 softmax than one bf16 rounding of P."""
+    (tq, tk, tv), _ = _bf16_qkv(2, 300, 4, 1, 64, seed=21)
+    want = flash_attention_kernel(tq.float(), tk.float(), tv.float(), window=9).numpy()
+    split = worst_of_limit(flash_tiles_emulated(tq, tk, tv, 9).float().numpy(), want)
+    once = worst_of_limit(flash_tiles_emulated(tq, tk, tv, 9, split_p=False).float().numpy(),
+                          want)
+    assert split <= 1.0 and split < once
+
+
 RGLRU_CASES = [(2, 64, 128), (1, 500, 256), (2, 129, 300)]
 
 
@@ -158,6 +248,31 @@ def test_cuda_path_raises_without_a_card(monkeypatch):
     assert K.LAUNCHES == {name: 0 for name in K.KERNEL_NAMES}
 
 
+def test_bf16_head_dims_the_tensor_core_bodies_refuse(monkeypatch):
+    """bf16 launches only the tensor-core bodies, which take rows of whole
+    16-byte chunks (Dh a multiple of 8): Dh = 12 raises in bf16 before
+    anything is loaded, where f32 (the SIMT bodies, Dh a multiple of 4)
+    goes on to the launch."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is visible: the launch path runs instead")
+    from repro_torch.kernels.decode_attention import kernel as decode_kernel_mod
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_kernel
+
+    monkeypatch.setattr(flash_kernel_mod, "check_inputs", lambda *args: "cuda")
+    monkeypatch.setattr(decode_kernel_mod, "check_inputs", lambda *args: "cuda")
+    q, k, v = map(torch.as_tensor, _qkv(1, 40, 2, 1, 12, seed=4))
+    valid = torch.ones((1, 40), dtype=torch.bool)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_attention_kernel(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="16-byte"):
+        decode_attention_kernel(q[:, 0].bfloat16(), k.bfloat16(), v.bfloat16(), valid)
+    with pytest.raises(RuntimeError, match="needs an NVIDIA card"):
+        flash_attention_kernel(q, k, v)
+    with pytest.raises(RuntimeError, match="needs an NVIDIA card"):
+        decode_attention_kernel(q[:, 0].contiguous(), k, v, valid)
+    assert K.LAUNCHES == {name: 0 for name in K.KERNEL_NAMES}
+
+
 def test_wrappers_reject_bad_inputs():
     q, k, v = map(torch.as_tensor, _qkv(1, 40, 4, 2, 16, seed=2))
     a, g = map(torch.as_tensor, _ag(1, 40, 8, seed=2))
@@ -177,3 +292,15 @@ def test_wrappers_reject_bad_inputs():
         rglru_scan_kernel(a, g[:, :-1].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         rglru_scan_kernel(a.transpose(1, 2).contiguous().transpose(1, 2), g)
+
+
+if __name__ == "__main__":
+    # The emulation at the serving shape's band with four of its sixteen
+    # heads, against the plain f32 softmax (what the card compares the
+    # kernel with): the worst element's share of its bound, P split in two
+    # bf16 parts (the kernel) and P rounded once.
+    (tq, tk, tv), _ = _bf16_qkv(1, 3000, 4, 1, 256, seed=2024)
+    ref = flash_attention_kernel(tq, tk, tv, window=2048).float().numpy()
+    for split_p in (True, False):
+        got = flash_tiles_emulated(tq, tk, tv, 2048, split_p=split_p).float().numpy()
+        print(f"split_p={split_p}: worst element {worst_of_limit(got, ref):.3f} of its limit")

@@ -12,6 +12,10 @@ against the JAX package on the same numpy-seeded inputs.
   slot, at the reference's 3e-5 in float32. The empty row gives 0, as the
   Pallas kernel does; the oracle gives the mean of V there (ROADMAP C9), so
   it is compared with the oracle only on rows with a valid slot.
+* The rounding of ``decode_attention``'s bf16 tensor-core body, which runs
+  only on the card: an emulation of its cache splits, its four warps' keys
+  and its two bf16 parts of P, held against the Pallas kernel on bf16
+  inputs to the card's per-element bound (|Δ| ≤ 2^-7·|ref| + 2^-9).
 * The model: a bfloat16 twin of ``tiny(falcon-mamba-7b)``; the full
   config's parameter count; the initialisation rules; the float32 ``ssm``
   cache through ``lm_cache_from_numpy``. The float32 prefill / decode /
@@ -177,6 +181,101 @@ def test_decode_attention_bfloat16():
     want = np.asarray(j_decode(jq, jk, jv, jnp.asarray(valid), interpret=True)
                       .astype(jnp.float32))
     assert np.all(np.abs(got.float().numpy() - want) <= 2.0**-7 * np.abs(want) + 2.0**-9)
+
+
+def decode_tiles_emulated(q, k, v, valid, softcap=0.0):
+    """The arithmetic of the bf16 body of ``csrc/decode_attention.cu`` in
+    torch: the cache cut into the splits ``split_plan`` gives bf16 on 132
+    SMs; each split's 64-key tiles dealt to four warps of 16 keys; each warp
+    an online softmax in f32 over its keys with P as bf16 hi + lo before
+    P·V; the warps merged at the end of the split, then the splits. q (B,
+    Hq, Dh), k/v (B, C, Hkv, Dh) bf16, valid (B, C) → (B, Hq, Dh) bf16."""
+    b, hq, dh = q.shape
+    c, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qf = q.float().reshape(b, hkv, g, dh)
+    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # (B, Hkv, C, Dh)
+    nsplit, per = split_plan(b, hkv, g, c, 132, torch.bfloat16)
+    parts = []
+    for sp in range(nsplit):
+        warps = []
+        for w in range(4):
+            m = torch.full((b, hkv, g, 1), -torch.inf)
+            l = torch.zeros_like(m)
+            acc = torch.zeros((b, hkv, g, dh))
+            for t in range(sp * per, min((sp + 1) * per, -(-c // 64))):
+                first = t * 64 + 16 * w
+                if first >= c:
+                    continue
+                keys = torch.arange(first, min(first + 16, c))
+                sc = qf @ kf[:, :, keys].transpose(-1, -2) * dh**-0.5
+                if softcap > 0:
+                    sc = softcap * torch.tanh(sc / softcap)
+                sc = sc.masked_fill(~valid[:, None, None, keys], -torch.inf)
+                m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+                m_use = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+                p = torch.exp(sc - m_use)
+                hi = p.bfloat16().float()
+                pv = hi @ vf[:, :, keys] + (p - hi).bfloat16().float() @ vf[:, :, keys]
+                alpha = torch.exp(m - m_use)
+                l, acc, m = l * alpha + p.sum(-1, keepdim=True), acc * alpha + pv, m_new
+            warps.append((m, l, acc))
+        parts.append(_merge(warps))
+    m, l, acc = _merge(parts)
+    return (acc / l.clamp_min(1e-30)).reshape(b, hq, dh).bfloat16()
+
+
+def _merge(states):
+    """(m, l, acc) of disjoint key sets → theirs together; a set with no
+    valid key (m = −∞) drops out."""
+    ms = torch.stack([s[0] for s in states])
+    big = ms.amax(0)
+    w = torch.where(torch.isinf(ms), torch.zeros_like(ms),
+                    torch.exp(ms - torch.where(torch.isinf(big), torch.zeros_like(big), big)))
+    return (big, (w * torch.stack([s[1] for s in states])).sum(0),
+            (w * torch.stack([s[2] for s in states])).sum(0))
+
+
+# (b, hq, hkv, dh, c, share of valid slots, softcap): the JAX sweep, a
+# soft-capped case, and the bf16 cases the card checks — G 1, 2, 3, 7, 8, 16
+# at head dims 64, 120, 128, 256, caches ragged against the 64-key tile
+DECODE_BF16_CASES = DECODE_CASES + [
+    (2, 4, 4, 64, 1000, 0.8, 0.0), (1, 6, 2, 120, 777, 0.5, 0.0),
+    (2, 14, 2, 64, 300, 0.7, 0.0), (1, 16, 2, 128, 1001, 1.0, 0.0),
+    (2, 16, 1, 256, 700, 0.6, 50.0), (1, 8, 4, 128, 130, 0.05, 0.0)]
+
+
+@pytest.mark.parametrize("b,hq,hkv,dh,c,fv,softcap", DECODE_BF16_CASES)
+def test_decode_bf16_tile_rounding_meets_the_card_bound(b, hq, hkv, dh, c, fv, softcap):
+    """The tensor-core body's split, warp and P rounding stay within the
+    card's per-element bound of the Pallas kernel on the same bf16 inputs;
+    the last batch row has no valid slot where B > 1 and gives 0."""
+    q, k, v, rng = _qkv(b, hq, hkv, dh, c, seed=c + dh + 1)
+    valid = rng.random((b, c)) < fv
+    valid[:, 0] = True
+    if b > 1:
+        valid[-1] = False
+    tq, tk, tv = (torch.as_tensor(x).bfloat16() for x in (q, k, v))
+    got = decode_tiles_emulated(tq, tk, tv, torch.as_tensor(valid), softcap).float().numpy()
+    want = np.asarray(j_decode(*(jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (tq, tk, tv)),
+                               jnp.asarray(valid), softcap=softcap, interpret=True)
+                      .astype(jnp.float32))
+    assert np.all(np.abs(got - want) <= 2.0**-7 * np.abs(want) + 2.0**-9)
+    if b > 1:
+        assert float(np.abs(got[-1]).max()) == 0.0
+
+
+@pytest.mark.parametrize("b,hkv,g,c", [(4, 1, 16, 2048), (4, 16, 2, 32768), (1, 2, 7, 70),
+                                       (2, 4, 40, 1000)])
+def test_decode_bf16_split_plan_fills_the_card(b, hkv, g, c):
+    """The tensor-core body's splits: 64-key tiles, none empty, all of
+    them covered, and at least one block per SM wherever the cache has
+    enough tiles for it (recurrentgemma's ring: 32 splits of one tile)."""
+    tiles = -(-c // 64)
+    nsplit, per = split_plan(b, hkv, g, c, 132, torch.bfloat16)
+    assert nsplit >= 1 and (nsplit - 1) * per < tiles <= nsplit * per
+    blocks = b * hkv * -(-g // 16) * nsplit
+    assert blocks >= min(132, b * hkv * -(-g // 16) * tiles)
 
 
 @pytest.mark.parametrize("b,hkv,g,c", [(4, 1, 16, 2048), (4, 16, 2, 32768), (1, 2, 7, 70),
