@@ -15,14 +15,20 @@ of the JAX package. Phases:
    row buckets phases 4–5 reach, padded past the live rows as the engine
    pads them): max error against the stated tolerance, kernel and plain
    times (CUDA events, median), and the card's lower bound for the same
-   work;
+   work; and ``slice_chain`` — a whole slice-sampling chain at the paper's
+   configuration in one launch — against its plain version (the host
+   chain) on the same draw table, at each row bucket 8–256 with both gram
+   types: kept samples to 1e-9 and equal counts, a differing branch passing
+   only as a near-tie of g and its slice level;
 3. invariance — the same short job twice on the card, anchors scored by the
    fused kernel and by the torch composition; the trial tables must agree;
    then the same for a Pareto job with a constraint (``acq_score_multi``);
 4. main path — a 64-trial single-metric tuning job at the paper's engine
    configuration (slice sampler 300/250/5, 1024 anchors, 8 refined for 25
    Adam steps, refit after every observation) with the single-metric
-   kernels on;
+   kernels on; each refit is one ``slice_chain`` launch; the slowest GP
+   decision is broken down (rows, row bucket, its chain's evaluations, NaN
+   factors and exhausted shrinks, its spans);
 5. multi-metric and cost-aware paths — three 24-trial jobs at the same
    engine configuration: constrained (objective + latency constraint),
    Pareto (two objectives + the constraint) and cost-aware EI per unit
@@ -101,6 +107,9 @@ REPLACES = {
     "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:55",
     "mamba_scan": "src/repro/kernels/mamba_scan/kernel.py:63",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:75",
+    # the route of matern52_gram_pallas inside the jitted chain
+    # (src/repro/core/gp/slice_sampler.py:109, fit.py:25)
+    "slice_chain": "src/repro/kernels/matern52/kernel.py:148",
 }
 SOURCES = {
     "acq_score": "src/repro_torch/kernels/csrc/acq_score.cu",
@@ -111,12 +120,14 @@ SOURCES = {
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
+    "slice_chain": "src/repro_torch/kernels/csrc/slice_chain.cu",
 }
 # The path whose launches the JSON line reports for each kernel.
 PATH_OF = {"acq_score": "main", "acq_score_multi": "multi",
            "matern52_gram": "main", "matern52_cross": "main",
            "flash_attention": "serve", "rglru_scan": "serve",
-           "mamba_scan": "mamba", "decode_attention": "decode_check"}
+           "mamba_scan": "mamba", "decode_attention": "decode_check",
+           "slice_chain": "main"}
 
 # Tolerances, kernel vs plain version on the same inputs, as max |Δ| over
 # max(1, max |plain|). float64: both sides are exact to ~1e-14; 1e-9 leaves
@@ -174,6 +185,16 @@ SERVE_TOL = 5e-2
 # bf16 ones at 1e-1, about twice the noise measured, against breakage.
 MAMBA_BF16_TOL = 1e-1
 F32_SERVE_TOL = 1e-3
+# slice_chain against its plain version (phase 2): the kept samples to
+# 1e-9 — both sides compute the chain's points with the same float64
+# operations, so while they take the same branches the samples are equal,
+# and 1e-9 leaves room only for that. A branch may differ where the two log
+# densities (an in-block Cholesky against cuSOLVER's) straddle the slice
+# level: that is a near-tie when |g − log_y| ≤ 1e-9·max(1, |log_y|) on both
+# sides; at most one chain of the twelve may end on one.
+CHAIN_TOL = 1e-9
+CHAIN_TIE = 1e-9
+CHAIN_MAX_TIES = 1
 
 
 def fail(msg: str) -> None:
@@ -298,6 +319,30 @@ def device_profile(torch, label, fn, top=8) -> None:
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"  {ms:10.3f} ms {ms / max(busy_ms, 1e-9):6.1%} x{count:<5d} {name[:100]}",
               flush=True)
+
+
+def chain_divergence(tk, tp, levels):
+    """The first evaluation at which two chains' traces — rows (update, g),
+    in order — decide a branch differently, as (evaluation, update, near-
+    tie?), or None when they decide every branch alike. Each update's first
+    evaluation is g(0), which sets its slice level g(0) − level; a trace
+    whose updates fall out of step before any branch differs is a fault
+    (tie False)."""
+    lk = lp = None
+    for e in range(min(len(tk), len(tp))):
+        (uk, gk), (up, gp) = tk[e], tp[e]
+        if uk != up:
+            return e, int(up), False
+        if e == 0 or tk[e - 1][0] != uk:
+            lk, lp = gk - levels[int(uk)], gp - levels[int(up)]
+            continue
+        if (gk > lk) != (gp > lp):
+            tie = all(abs(g - lv) <= CHAIN_TIE * max(1.0, abs(lv))
+                      for g, lv in ((gk, lk), (gp, lp)))
+            return e, int(uk), tie
+    if len(tk) != len(tp):
+        return min(len(tk), len(tp)), -1, False
+    return None
 
 
 def rel_err(got, ref) -> float:
@@ -844,6 +889,41 @@ def main() -> None:
                                      with_inverse=True)
         return post, x_np[:live]
 
+    # The BO jobs' space and seeded objective (phases 2–5): an XGBoost-shaped
+    # space; the final loss of a learning curve and a cost per trial.
+    from repro_torch.core import (
+        BOConfig, BOSuggester, Continuous, Integer, MetricSet, MetricSpec,
+        SearchSpace, Tuner, TuningJobConfig, pareto_mask,
+    )
+    from repro_torch.core import prng, telemetry
+    from repro_torch.core.gp.slice_sampler import (
+        FAST_CONFIG, PAPER_CONFIG, chain_draws, keep_rows,
+    )
+    from repro_torch.core.history import bucket_size
+    from repro_torch.core.optimize_acq import AcqOptConfig
+    from repro_torch.core.scheduler import SimBackend
+    from repro_torch.kernels.slice_chain.kernel import slice_chain_kernel
+    from repro_torch.kernels.slice_chain.plain import pack_table, slice_chain_plain
+
+    space = SearchSpace([
+        Continuous("eta", 1e-3, 1.0, scaling="log"),
+        Integer("max_depth", 1, 10),
+        Continuous("min_child_weight", 1e-2, 1e2, scaling="log"),
+        Continuous("subsample", 0.5, 1.0),
+        Continuous("colsample_bytree", 0.3, 1.0),
+        Continuous("alpha", 1e-4, 10.0, scaling="log"),
+    ])
+    orng = np.random.default_rng(2021)
+    opt = orng.random(6)  # the seeded optimum, in the encoded unit cube
+    weights = 0.5 + orng.random(6)
+
+    def objective(cfg):
+        u = space.encode(cfg)
+        floor = 0.1 + float(np.sum(weights * (u - opt) ** 2))
+        floor += 0.01 * math.sin(7.0 * float(np.sum(u)))
+        t = np.arange(1, 11)
+        return floor + 0.5 * np.exp(-0.3 * t), 1.0 + 0.2 * cfg["max_depth"]
+
     results = {}  # kernel name -> numbers at the main path's shape
     # -------------------------------------------------------------- 2. kernels
     t_phase = time.perf_counter()
@@ -1051,38 +1131,107 @@ def main() -> None:
             lambda: matern52_cross_plain(xn, xt, *pp),
             nbytes, {"f32": flops}, main_shape=(n == 64),
         )
+
+    # slice_chain: one whole chain at the paper's configuration (300
+    # updates, up to 8 step-outs a side and 32 shrinks each) against its
+    # plain version on the same draw table — the host chain, which per
+    # evaluation launches matern52_gram (f32 gram) or builds matern52_ard
+    # (f64), factorizes with cuSOLVER and reads back one float. Data: seeded
+    # configurations of the main path's space and their standardized
+    # objective values, a few live rows under each row bucket the engine
+    # makes up to 256 (8–128 keep the factor in shared memory, 256 in the
+    # global workspace), from the engine's start and bounds; both gram
+    # types. Held as CHAIN_TOL / CHAIN_TIE say; the evaluation counts must
+    # be equal where no branch differs. The main path's shape is its largest
+    # bucket (60 of 64 rows) with its f32 gram.
+    # Bound: this run's work at the card's peaks — per evaluation in the box
+    # (the kernel's count), the gram (m(m+1)/2 entries × (3d + 10)
+    # operations and the warp, 12 per live row and feature) in the gram's
+    # type, and the factor with y as an extra row (m³/3 + m² f64) — against
+    # the bytes (x, y, mask, the table and the kept samples once). The chain
+    # is serial and runs on one SM: the one-SM bound (each type's peak over
+    # the SM count) is printed beside it. No PyTorch call computes a chain.
+    chain_cfg = PAPER_CONFIG
+    d = space.encoded_dim
+    dim = P.GPHyperParams.packed_size(d)
+    chain_bounds = P.default_bounds(d, space.warpable_dims())
+    chain_z0 = np.clip(P.default_params(d).pack().numpy(),
+                       chain_bounds.lower + 1e-4, chain_bounds.upper - 1e-4)
+    crng = np.random.default_rng(16)
+    chain_cases = ((5, 8), (13, 16), (29, 32), (60, 64), (124, 128), (250, 256))
+    ties = 0
+    for live, n in chain_cases:
+        configs = [space.decode(u) for u in crng.random((live, d))]
+        x_np = np.zeros((n, d))
+        x_np[:live] = np.stack([space.encode(c) for c in configs])
+        y_live = np.array([objective(c)[0][-1] for c in configs])
+        y_np = np.zeros(n)
+        y_np[:live] = (y_live - y_live.mean()) / y_live.std()
+        draws = chain_draws(prng.PRNGKey(n), dim, chain_cfg)
+        xt, yt = torch.as_tensor(x_np).to(dev), torch.as_tensor(y_np).to(dev)
+        mt = torch.as_tensor(np.arange(n) < live).to(dev)
+        table = torch.as_tensor(pack_table(chain_bounds, chain_z0, draws)).to(dev)
+        for dt, gram in (("f32", torch.float32), ("f64", torch.float64)):
+            label = f"slice_chain {dt} T={chain_cfg.num_samples} n={n} live={live} d={d}"
+            kept_k, counts_k, tr_k = slice_chain_kernel(xt, yt, mt, table, chain_cfg, gram,
+                                                        trace=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kept_p, counts_p, tr_p = slice_chain_plain(xt, yt, mt, table, chain_cfg, gram,
+                                                       trace=True)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t0) * 1e3
+            ck, cp = counts_k.cpu().numpy(), counts_p.cpu().numpy()
+            if kept_k.shape != kept_p.shape or not torch.isfinite(kept_k).all():
+                fail(f"{label}: kept samples of shape {tuple(kept_k.shape)}, or not finite")
+            div = chain_divergence(tr_k[: int(ck[0])].cpu().numpy(), tr_p.cpu().numpy(),
+                                   draws.levels)
+            held = np.ones(chain_cfg.num_kept, dtype=bool)
+            tie_text = "every branch alike"
+            if div is not None:
+                e, update, tie = div
+                if not tie:
+                    fail(f"{label}: evaluation {e} (update {update}) takes another "
+                         "branch than the plain chain, and not on a near-tie")
+                ties += 1
+                held = keep_rows(chain_cfg) < update
+                tie_text = (f"near-tie at evaluation {e} (update {update}): held "
+                            f"{int(held.sum())} of {chain_cfg.num_kept} kept rows")
+            held_t = torch.as_tensor(held, device=dev)
+            err = float((kept_k - kept_p).abs()[held_t].max()) if held.any() else 0.0
+            if err > CHAIN_TOL:
+                fail(f"{label}: kept samples differ by {err:.3e} from the plain chain")
+            if div is None and not np.array_equal(ck, cp):
+                fail(f"{label}: counts {ck.tolist()} against the plain chain's {cp.tolist()}")
+            k_ms = time_ms(torch, lambda: slice_chain_kernel(xt, yt, mt, table, chain_cfg, gram),
+                           reps=3 if n <= 64 else 1, warmup=0)
+            m, boxed = live, float(ck[3])
+            gram_ops = boxed * (m * (m + 1) // 2 * (3 * d + 10) + 12 * m * d)
+            factor_ops = boxed * (m ** 3 / 3 + m * m)
+            flops = ({"f32": gram_ops, "f64": factor_ops} if dt == "f32"
+                     else {"f64": gram_ops + factor_ops})
+            nbytes = 8 * (n * d + n) + n + 8 * table.numel() + 8 * (kept_k.numel() + 4)
+            b_ms, b_by = bound_ms(nbytes, flops, peaks)
+            sm_ms = sum(f / (peaks[u] / sms) for u, f in flops.items()) * 1e3
+            print(f"{label}: kept max |Δ| {err:.3e} (tol {CHAIN_TOL:.0e}; {tie_text}); "
+                  f"evaluations {int(ck[0])} (plain {int(cp[0])}), NaN factors {int(ck[1])}, "
+                  f"exhausted shrinks {int(ck[2])}, in the box {int(ck[3])}; kernel_ms "
+                  f"{k_ms:.5f} ({k_ms / ck[0] * 1e3:.3f} us an evaluation, "
+                  f"{b_ms / k_ms:.4%} of bound) plain_ms {p_ms:.5f} bound_ms {b_ms:.6f} "
+                  f"({b_by}) one-SM bound {sm_ms:.5f} ms; library none", flush=True)
+            if dt == "f32" and n == 64:
+                results["slice_chain"] = {
+                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                }
+    print(f"slice_chain: {ties} of {2 * len(chain_cases)} chains ended on a near-tie "
+          f"(at most {CHAIN_MAX_TIES})", flush=True)
+    if ties > CHAIN_MAX_TIES:
+        fail(f"slice_chain: {ties} chains ended on a near-tie")
     phase_done("2 kernels", t_phase)
 
     # ------------------------------------------------------- 3. invariance
     t_phase = time.perf_counter()
-    from repro_torch.core import (
-        BOConfig, BOSuggester, Continuous, Integer, MetricSet, MetricSpec,
-        SearchSpace, Tuner, TuningJobConfig, pareto_mask,
-    )
-    from repro_torch.core import telemetry
-    from repro_torch.core.gp.slice_sampler import FAST_CONFIG, PAPER_CONFIG
-    from repro_torch.core.history import bucket_size
-    from repro_torch.core.optimize_acq import AcqOptConfig
-    from repro_torch.core.scheduler import SimBackend
-
-    space = SearchSpace([
-        Continuous("eta", 1e-3, 1.0, scaling="log"),
-        Integer("max_depth", 1, 10),
-        Continuous("min_child_weight", 1e-2, 1e2, scaling="log"),
-        Continuous("subsample", 0.5, 1.0),
-        Continuous("colsample_bytree", 0.3, 1.0),
-        Continuous("alpha", 1e-4, 10.0, scaling="log"),
-    ])
-    orng = np.random.default_rng(2021)
-    opt = orng.random(6)  # the seeded optimum, in the encoded unit cube
-    weights = 0.5 + orng.random(6)
-
-    def objective(cfg):
-        u = space.encode(cfg)
-        floor = 0.1 + float(np.sum(weights * (u - opt) ** 2))
-        floor += 0.01 * math.sin(7.0 * float(np.sum(u)))
-        t = np.arange(1, 11)
-        return floor + 0.5 * np.exp(-0.3 * t), 1.0 + 0.2 * cfg["max_depth"]
 
     def metric_objective(cfg):
         """The same seeded objective with named metrics: the final loss, a
@@ -1138,10 +1287,11 @@ def main() -> None:
 
     def drive(label, cfg, trials, parallel, scorer, fn=objective, **job):
         """One job with spans on and launch counts set to 0 just before it;
-        checks the trials, the launches of ``scorer`` and both Matérn
-        kernels, and that the row buckets it scored were held against the
-        plain version in phase 2; prints the decision latency."""
-        must_launch = (scorer, "matern52_gram", "matern52_cross")
+        checks the trials, the launches of ``scorer``, both Matérn kernels
+        and ``slice_chain`` (once per refit), and that the row buckets it
+        scored were held against the plain version in phase 2; prints the
+        decision latency and the slowest GP decision's breakdown."""
+        must_launch = (scorer, "matern52_gram", "matern52_cross", "slice_chain")
         telemetry.get().reset()
         telemetry.set_enabled(True)
         K.reset_launch_counts()
@@ -1171,11 +1321,18 @@ def main() -> None:
 
         spans = {}
         by_id = {}
+        chains = []  # the gphp.slice_chain events: one per refit
         for ev in telemetry.get().trace_events():
             if ev.get("kind") == "span":
                 spans.setdefault(ev["name"], []).append(ev["dur"] * 1e3)
                 by_id[ev["span_id"]] = ev
+            elif ev.get("name") == "gphp.slice_chain":
+                chains.append(ev)
         decisions = len(spans.get("suggest.posterior", []))
+        refits = len(spans.get("suggest.gphp_fit", []))
+        if launches["slice_chain"] != refits or len(chains) != refits:
+            fail(f"{label}: {launches['slice_chain']} slice_chain launches and "
+                 f"{len(chains)} chains for {refits} refits")
 
         def med(span_name):
             v = spans.get(span_name)
@@ -1184,14 +1341,15 @@ def main() -> None:
         # Decision latency is over GP decisions: the suggest.decide spans
         # that enclose a suggest.posterior span (cold-start decisions run
         # no GP).
-        gp_ids = set()
-        for ev in by_id.values():
-            if ev["name"] == "suggest.posterior":
-                up = by_id.get(ev["parent_id"])
-                while up is not None and up["name"] != "suggest.decide":
-                    up = by_id.get(up["parent_id"])
-                if up is not None:
-                    gp_ids.add(up["span_id"])
+        def decision_of(ev):
+            """The span id of the suggest.decide span enclosing ``ev``."""
+            up = by_id.get(ev["parent_id"])
+            while up is not None and up["name"] != "suggest.decide":
+                up = by_id.get(up["parent_id"])
+            return None if up is None else up["span_id"]
+
+        gp_ids = {decision_of(ev) for ev in by_id.values()
+                  if ev["name"] == "suggest.posterior"} - {None}
         dec = sorted(by_id[i]["dur"] * 1e3 for i in gp_ids)
         print(f"{label}: {len(done)} trials in {wall:.1f} s, {decisions} GP "
               f"decisions, best objective {res.best_objective:.6f}", flush=True)
@@ -1226,6 +1384,35 @@ def main() -> None:
         for k, v in launches.items():
             print(f"  launches {k}: {v} ({v / max(decisions, 1):.1f} per GP decision)",
                   flush=True)
+        evals = [c["attrs"]["evaluations"] for c in chains]
+        stuck = sum(c["attrs"]["exhausted"] == PAPER_CONFIG.num_samples for c in chains)
+        print(f"  chains: {refits}, evaluations per chain median "
+              f"{statistics.median(evals):.0f} (min {min(evals)}, max {max(evals)}); "
+              f"NaN factors {sum(c['attrs']['nan_factors'] for c in chains)}, "
+              f"exhausted shrinks {sum(c['attrs']['exhausted'] for c in chains)} in all; "
+              f"{stuck} chains never moved (every shrink ran out)", flush=True)
+
+        # the slowest GP decision: its rows, its chain, its spans (C10)
+        slow = max(gp_ids, key=lambda i: by_id[i]["dur"])
+        slow_ms = by_id[slow]["dur"] * 1e3
+        n_slow = max(ev["attrs"]["n"] for ev in by_id.values()
+                     if ev["name"] == "suggest.posterior" and decision_of(ev) == slow)
+        parts = {}
+        for ev in by_id.values():
+            if ev["name"] in ("suggest.gphp_fit", "suggest.factorize", "suggest.acq_opt") \
+                    and decision_of(ev) == slow:
+                parts[ev["name"]] = parts.get(ev["name"], 0.0) + ev["dur"] * 1e3
+        own = [c["attrs"] for c in chains if decision_of(c) == slow]
+        chain_text = ("no refit" if not own else ", ".join(
+            f"evaluations {a['evaluations']}, NaN factors {a['nan_factors']}, exhausted "
+            f"shrinks {a['exhausted']}, in the box {a['in_box']}, start amplitude "
+            f"{math.exp(a['start_log_amplitude']):.4g} noise std "
+            f"{math.exp(a['start_log_noise']):.4g}" for a in own))
+        print(f"  slowest GP decision: {slow_ms:.2f} ms ({slow_ms / statistics.median(dec):.2f}"
+              f"x the p50), n={n_slow}, row bucket {bucket_size(n_slow)}; chain: "
+              f"{chain_text}; spans: " + ", ".join(
+                  f"{k} {parts.get(k, 0.0):.2f} ms" for k in
+                  ("suggest.gphp_fit", "suggest.factorize", "suggest.acq_opt")), flush=True)
         return tuner, res, launches
 
     # 4. the single-metric main path

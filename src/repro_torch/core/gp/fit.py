@@ -1,12 +1,13 @@
 """GPHP fitting entry points.
 
-``mcmc_gphps`` slice-samples the packed GPHP posterior. The chain runs on the
-host (``slice_sampler.py``); each target evaluation builds the masked gram,
-factorizes it and solves on the data's device, and reads back one float.
-The box test and the Gaussian prior are host arithmetic on the packed
-vector, so a point outside the box costs no device work at all (the
-reference computes the likelihood there and discards it; the value is −inf
-either way).
+``mcmc_gphps`` slice-samples the packed GPHP posterior. The host makes
+every draw of the chain up front (``slice_sampler.chain_draws``); the chain
+itself runs in ``repro_torch.kernels.slice_chain``: on a CUDA tensor one
+kernel launch runs it whole — every evaluation's gram, factor and solve,
+and every branch — with the gram in float32 for ``backend="kernel"`` and
+float64 for ``"torch"``, and one read-back returns the kept samples. On a
+CPU tensor its plain version runs the chain on the host. There is no
+fallback: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.gp.gp import log_marginal_likelihood
-from repro_torch.core.gp.params import GPHyperBounds, GPHyperParams
-from repro_torch.core.gp.slice_sampler import SliceSamplerConfig, slice_sample_chain
+from repro_torch.core import telemetry
+from repro_torch.core.gp.params import GPHyperBounds
+from repro_torch.core.gp.slice_sampler import SliceSamplerConfig, chain_draws
 
 __all__ = ["mcmc_gphps", "map_gphps"]
 
@@ -33,20 +34,19 @@ def mcmc_gphps(
 ) -> np.ndarray:
     """Slice-sample the packed GPHP posterior. Returns (num_kept, 3d+2)
     float64 numpy."""
+    from repro_torch.kernels.slice_chain.ops import slice_chain
+
+    z0 = np.asarray(z0, dtype=np.float64)
+    draws = chain_draws(key, z0.shape[0], cfg)
+    samples, counts = slice_chain(x, y, mask, bounds, z0, draws, cfg, backend)
     d = x.shape[-1]
-    prior_std = np.maximum(bounds.width / 4.0, 1e-6)
-    center = bounds.center
-
-    def log_prob(packed: np.ndarray) -> float:
-        if not np.all((packed >= bounds.lower) & (packed <= bounds.upper)):
-            return -float("inf")
-        log_prior = -0.5 * float(np.sum(((packed - center) / prior_std) ** 2))
-        vec = torch.as_tensor(packed, dtype=x.dtype).to(x.device)
-        params = GPHyperParams.unpack(vec, d)
-        mll = log_marginal_likelihood(x, y, params, mask, backend=backend)
-        return float(mll) + log_prior
-
-    return slice_sample_chain(log_prob, z0, key, cfg)
+    telemetry.event(
+        "gphp.slice_chain", rows=int(x.shape[0]), evaluations=int(counts[0]),
+        nan_factors=int(counts[1]), exhausted=int(counts[2]),
+        in_box=int(counts[3]), start_log_amplitude=float(z0[d]),
+        start_log_noise=float(z0[d + 1]),
+    )
+    return samples
 
 
 def map_gphps(*args, **kwargs):

@@ -35,6 +35,10 @@ __all__ = [
     "normal",
     "exponential",
     "threefry2x32",
+    "split_each",
+    "unit_uniform_each",
+    "normal_each",
+    "exponential_each",
 ]
 
 _ROT0 = (13, 15, 26, 6)
@@ -105,15 +109,23 @@ def random_bits(key, shape=()) -> np.ndarray:
     return bits.reshape(shape)
 
 
-def uniform(key, shape=(), minval=0.0, maxval=1.0) -> np.ndarray:
-    """``jax.random.uniform`` in float64: mantissa bits under exponent 0,
-    minus one, scaled, floored at ``minval``."""
-    bits = random_bits(key, shape)
+def _unit(bits: np.ndarray) -> np.ndarray:
+    """[0, 1) floats of 64-bit draws: mantissa bits under exponent 0, minus
+    one."""
     float_bits = (bits >> np.uint64(64 - 52)) | np.float64(1.0).view(np.uint64)
-    floats = float_bits.view(np.float64) - 1.0
+    return float_bits.view(np.float64) - 1.0
+
+
+def _scale(floats: np.ndarray, minval, maxval) -> np.ndarray:
     lo = np.float64(minval)
     hi = np.float64(maxval)
     return np.maximum(lo, floats * (hi - lo) + lo)
+
+
+def uniform(key, shape=(), minval=0.0, maxval=1.0) -> np.ndarray:
+    """``jax.random.uniform`` in float64: mantissa bits under exponent 0,
+    minus one, scaled, floored at ``minval``."""
+    return _scale(_unit(random_bits(key, shape)), minval, maxval)
 
 
 # XLA's float64 log1p (its CPU elemental emitter): Cephes' rational form
@@ -207,14 +219,60 @@ def _erf_inv(x: np.ndarray) -> np.ndarray:
     return p * x
 
 
+_NORMAL_LO = np.nextafter(np.float64(-1.0), np.float64(0.0))
+
+
+def _normal(floats: np.ndarray) -> np.ndarray:
+    return np.float64(np.sqrt(2.0)) * _erf_inv(_scale(floats, _NORMAL_LO, 1.0))
+
+
 def normal(key, shape=()) -> np.ndarray:
     """``jax.random.normal`` in float64: √2·erfinv(u), u ∈ (−1, 1)."""
-    lo = np.nextafter(np.float64(-1.0), np.float64(0.0))
-    u = uniform(key, shape, lo, 1.0)
-    return np.float64(np.sqrt(2.0)) * _erf_inv(u)
+    return _normal(_unit(random_bits(key, shape)))
 
 
 def exponential(key, shape=()) -> np.ndarray:
     """``jax.random.exponential`` in float64: −log1p(−u)."""
-    u = uniform(key, shape)
-    return -_log1p(-u)
+    return -_log1p(-uniform(key, shape))
+
+
+# Batched over keys: each function below takes a (K, 2) stack of keys and
+# gives, in row k, what its unbatched namesake gives for key k (one
+# threefry call over every key's counters instead of K calls).
+
+
+def _threefry_each(keys, num: int) -> tuple[np.ndarray, np.ndarray]:
+    """threefry2x32 of every key of a (K, 2) stack over counters 0..num−1:
+    two (K, num) halves."""
+    k = np.asarray(keys, dtype=np.uint32)
+    if k.ndim != 2 or k.shape[1] != 2:
+        raise ValueError(f"expected a (K, 2) stack of keys, got shape {k.shape}")
+    hi, lo = _counters(num)
+    return threefry2x32(k[:, 0:1], k[:, 1:2], hi[None, :], lo[None, :])
+
+
+def _bits_each(keys, num: int) -> np.ndarray:
+    """(K, num) 64-bit draws: row k is ``random_bits(keys[k], (num,))``."""
+    b1, b2 = _threefry_each(keys, num)
+    return (b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)
+
+
+def split_each(keys, num: int = 2) -> np.ndarray:
+    """(K, num, 2): row k is ``split(keys[k], num)``."""
+    return np.stack(_threefry_each(keys, num), axis=-1)
+
+
+def unit_uniform_each(keys) -> np.ndarray:
+    """(K,): the [0, 1) float that ``uniform(keys[k], (), lo, hi)`` scales
+    to ``max(lo, u·(hi − lo) + lo)``."""
+    return _unit(_bits_each(keys, 1)[:, 0])
+
+
+def normal_each(keys, num: int) -> np.ndarray:
+    """(K, num): row k is ``normal(keys[k], (num,))``."""
+    return _normal(_unit(_bits_each(keys, num)))
+
+
+def exponential_each(keys) -> np.ndarray:
+    """(K,): entry k is ``exponential(keys[k])``."""
+    return -_log1p(-_scale(unit_uniform_each(keys), 0.0, 1.0))

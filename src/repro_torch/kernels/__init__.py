@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, with their plain PyTorch versions.
 
 Each kernel lives in a package of its own (``acq_score``, ``matern52``,
-``flash_attention``, ``rglru_scan``, ``mamba_scan``, ``decode_attention``):
+``slice_chain``, ``flash_attention``, ``rglru_scan``, ``mamba_scan``,
+``decode_attention``):
 
 * ``kernel.py`` — the wrapper. On a CPU tensor it runs the plain version; on
   a CUDA tensor it launches the kernel (built from ``csrc/`` at first use,
@@ -27,6 +28,7 @@ __all__ = ["LAUNCHES", "KERNEL_NAMES", "reset_launch_counts"]
 KERNEL_NAMES = (
     "acq_score", "acq_score_multi", "matern52_gram", "matern52_cross",
     "flash_attention", "rglru_scan", "mamba_scan", "decode_attention",
+    "slice_chain",
 )
 
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}

@@ -37,6 +37,7 @@ SOURCES = {
     "rglru_scan": "rglru_scan.cu",
     "mamba_scan": "mamba_scan.cu",
     "decode_attention": "decode_attention.cu",
+    "slice_chain": "slice_chain.cu",
 }
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -142,11 +143,18 @@ _ARGTYPES = {
     # splits, tiles per split; softcap; scale; stream
     "decode_attention": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    # x, y, mask, table, out, trace, ws; n, d, T, burn_in, thin, kept,
+    # max_stepout, max_shrink; step; stream
+    "slice_chain": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+    + [ctypes.c_double, ctypes.c_void_p],
 }
 # Host-side helpers (no launch): name -> (argtypes, restype).
 _HELPERS = {
     "acq_score_multi_smem_bytes": ([ctypes.c_int] * 7, ctypes.c_longlong),
     "acq_score_multi_smem_limit": ([ctypes.c_int], ctypes.c_longlong),
+    "slice_chain_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    "slice_chain_ws_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    "slice_chain_smem_limit": ([ctypes.c_int], ctypes.c_longlong),
 }
 
 

@@ -64,14 +64,8 @@ __global__ void gram_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
   const int i = row0 + threadIdx.y;
   const int j = col0 + threadIdx.x;
   if (i < n && j < m) {
-    const T* a = s1 + threadIdx.y * ld;
-    const T* b = s2 + threadIdx.x * ld;
-    T r2 = T(0);
-    for (int k = 0; k < d; ++k) {
-      const T diff = a[k] - b[k];
-      r2 += diff * diff;
-    }
-    out[((size_t)s * n + i) * m + j] = repro::matern52(r2, amp2[s]);
+    out[((size_t)s * n + i) * m + j] = repro::gram_entry(
+        s1 + threadIdx.y * ld, s2 + threadIdx.x * ld, d, amp2[s]);
   }
 }
 

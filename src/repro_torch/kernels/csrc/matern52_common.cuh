@@ -47,6 +47,20 @@ __device__ __forceinline__ T matern52(T r2, T amp2) {
   return amp2 * (T(1) + sqrt5 * r + T(5.0 / 3.0) * r2) * f_exp(-sqrt5 * r);
 }
 
+// k(a, b) of two warped, scaled rows: the squared distance summed over the
+// features in order, then the Matérn response. Every gram kernel builds its
+// entries with it (matern52.cu, slice_chain.cu), so their grams agree bit for
+// bit.
+template <typename T>
+__device__ __forceinline__ T gram_entry(const T* a, const T* b, int d, T amp2) {
+  T r2 = T(0);
+  for (int k = 0; k < d; ++k) {
+    const T diff = a[k] - b[k];
+    r2 += diff * diff;
+  }
+  return matern52(r2, amp2);
+}
+
 // Row stride in shared memory: d rounded up to an odd count, so threads of
 // a warp reading rows at the same column hit distinct banks.
 __host__ __device__ __forceinline__ int odd_stride(int d) { return d | 1; }
