@@ -56,8 +56,10 @@ of the JAX package. Phases:
 7. mamba path — falcon-mamba-7b at its full published widths and depth (64
    Mamba layers, 7.27e9 parameters, seeded on the card, after phase 6's
    model is freed): ``mamba_scan`` against its plain version at the serving
-   shape and the JAX package's sweep (y and the last state), then the same
-   serving run, checks and torch composition as phase 6 (64 ``mamba_scan``
+   shape, the JAX package's sweep and the kernel's edges (d_state 1, 3,
+   5, 8 and 16, ragged d_inner, S from 1 to 3000, Δ tiny and large; y and
+   the last state, each case with its share of the bytes and the operations
+   bound), then the same serving run, checks and torch composition as phase 6 (64 ``mamba_scan``
    launches per prefill), then decode after prefill and the torch
    composition's prefill once more with the model computing in float32.
 
@@ -253,12 +255,17 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3, hide_host: bool = True) 
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: dict, peaks) -> tuple:
-    """Least time for the work: the larger of bytes over the HBM rate and
+def bound_parts(nbytes: float, flops: dict, peaks) -> tuple:
+    """The two least times for the work, in ms: bytes over the HBM rate, and
     the operations, each over the peak of the units that can run them
     (``flops`` maps a PEAKS key to a FLOP count)."""
-    t_bytes = nbytes / peaks["hbm"] * 1e3
-    t_ops = sum(f / peaks[unit] for unit, f in flops.items()) * 1e3
+    return (nbytes / peaks["hbm"] * 1e3,
+            sum(f / peaks[unit] for unit, f in flops.items()) * 1e3)
+
+
+def bound_ms(nbytes: float, flops: dict, peaks) -> tuple:
+    """Least time for the work: the larger of the two ``bound_parts``."""
+    t_bytes, t_ops = bound_parts(nbytes, flops, peaks)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -761,38 +768,56 @@ def mamba_phase(torch, K, check, dev) -> dict:
 
     # mamba_scan: the serving shape (B, S, d_inner, d_state) with inputs as
     # the block makes them (Δ = softplus of about −4.6, A = −(n+1)·e^a_log),
-    # then the JAX package's sweep (tests/test_kernels.py). y and the last
-    # state are each held at 1e-4 × max(1, max |plain|), the reference's
-    # tolerance. Bound: bytes — u and Δ read and y written (12 per element),
-    # b, c, A and the last state — against the exponentials, B·S·di·ds of
-    # them, at 16 per clock per SM (PEAKS "exp", from the card's SM count and
-    # clock). No single PyTorch call computes this scan: no library time.
-    scan_cases = [(SERVE_BATCH, SERVE_PROMPT, cfg.mamba.d_inner, cfg.mamba.d_state, True),
-                  (2, 64, 128, 8, False), (1, 300, 256, 16, False), (2, 128, 300, 16, False)]
-    for b, s, di, ds, main in scan_cases:
+    # the JAX package's sweep (tests/test_kernels.py; Δ = 0.1·U, A = −2·U),
+    # then the kernel's edges on the sweep's inputs: d_state 1, 3 and 5 (most
+    # of its 16 register states zero-padded), d_inner 300 (a ragged last block) and
+    # 301 (u and Δ copied 4 bytes at a time), S 1, 17 and 3000 (partial tiles,
+    # a long run); Δ tiny (1e-3, u scaled by 10: the state is carried over
+    # all 3000 steps) and Δ large (5–10 with A = −(n+1): the decay flushes
+    # to 0). y and the last state are each held at 1e-4 × max(1, max
+    # |plain|), the reference's tolerance. Bound: bytes — u and Δ read and y
+    # written (12 per element), b, c, A and the last state — against the
+    # exponentials, B·S·di·ds of them, all on the special-function units
+    # (ex2.approx), 16 per clock per SM (PEAKS "exp", from the card's SM
+    # count and clock); each line gives both shares. No
+    # single PyTorch call computes this scan: no library time.
+    scan_cases = [("serve", SERVE_BATCH, SERVE_PROMPT, cfg.mamba.d_inner, cfg.mamba.d_state),
+                  ("sweep", 2, 64, 128, 8), ("sweep", 1, 300, 256, 16),
+                  ("sweep", 2, 128, 300, 16), ("sweep", 2, 17, 300, 1),
+                  ("sweep", 3, 1, 300, 3), ("sweep", 2, 3000, 300, 5),
+                  ("sweep", 2, 17, 301, 16), ("tiny", 1, 3000, 512, 16),
+                  ("large", 2, 300, 256, 16)]
+    for kind, b, s, di, ds in scan_cases:
         u = randn(b, s, di)
-        if main:
+        if kind == "serve":
             dt = F.softplus(-4.6 + randn(b, s, di))
             a = -(torch.arange(1, ds + 1, device=dev, dtype=torch.float32)[None]
                   * torch.exp(0.1 * randn(di, ds)))
+        elif kind == "large":
+            dt = 5.0 + 5.0 * torch.rand((b, s, di), generator=gen, device=dev)
+            a = -torch.arange(1, ds + 1, device=dev, dtype=torch.float32)[None].repeat(di, 1)
         else:
-            dt = 0.1 * torch.rand((b, s, di), generator=gen, device=dev)
+            scale = 1e-3 if kind == "tiny" else 0.1
+            dt = scale * torch.rand((b, s, di), generator=gen, device=dev)
             a = -2.0 * torch.rand((di, ds), generator=gen, device=dev)
+            if kind == "tiny":
+                u = 10.0 * u
         b_t, c_t = randn(b, s, ds), randn(b, s, ds)
+        label = f"B={b} S={s} di={di} ds={ds}" + ("" if kind in ("serve", "sweep") else f" Δ {kind}")
         _, h_last = mamba_scan_kernel(u, dt, a, b_t, c_t)
         torch.cuda.synchronize()
         _, h_plain = mamba_scan_plain(u, dt, a, b_t, c_t)
         h_err = float((h_last - h_plain).abs().max())
         h_scale = max(1.0, float(h_plain.abs().max()))
-        print(f"mamba_scan f32 B={b} S={s} di={di} ds={ds}: last state max_abs_err "
+        print(f"mamba_scan f32 {label}: last state max_abs_err "
               f"{h_err:.3e} (tol {TOL[('mamba_scan', 'f32')]:.0e} x {h_scale:.3g})", flush=True)
-        if h_err > TOL[("mamba_scan", "f32")] * h_scale:
-            fail(f"mamba_scan B={b} S={s} di={di} ds={ds}: last state disagrees")
-        check("mamba_scan", "f32", f"B={b} S={s} di={di} ds={ds}",
+        if not h_err <= TOL[("mamba_scan", "f32")] * h_scale:
+            fail(f"mamba_scan {label}: last state disagrees")
+        check("mamba_scan", "f32", label,
               lambda: mamba_scan_kernel(u, dt, a, b_t, c_t)[0],
               lambda: mamba_scan_plain(u, dt, a, b_t, c_t)[0],
               4 * (3 * b * s * di + 2 * b * s * ds + di * ds + b * di * ds),
-              {"exp": b * s * di * ds}, main_shape=main)
+              {"exp": b * s * di * ds}, main_shape=kind == "serve")
         del u, dt, a, b_t, c_t, h_last, h_plain
     torch.cuda.empty_cache()
 
@@ -958,15 +983,21 @@ def main() -> None:
         p_ms = time_ms(torch, pfn)
         call_ms = time_ms(torch, kfn, hide_host=False)
         b_ms, b_by = bound_ms(nbytes, flops, peaks)
+        t_bytes, t_ops = bound_parts(nbytes, flops, peaks)
         # the rate of the resource that bounds the work, at kernel_ms
         rate = (f"{nbytes / k_ms / 1e6:.1f} GB/s" if b_by == "bytes"
-                else f"{sum(flops.values()) / k_ms / 1e9:.2f} TFLOP/s")
+                else f"{sum(flops.values()) / k_ms / 1e9:.2f} TFLOP/s, "
+                     f"{nbytes / k_ms / 1e6:.1f} GB/s")
         print(f"{kname} {dt} {label}: max_abs_err {err:.3e} ({tol_text}) "
-              f"kernel_ms {k_ms:.5f} ({rate}, {b_ms / k_ms:.1%} of bound) "
+              f"kernel_ms {k_ms:.5f} ({rate}, {b_ms / k_ms:.1%} of bound: bytes "
+              f"{t_bytes / k_ms:.1%}, operations {t_ops / k_ms:.1%}) "
               f"plain_ms {p_ms:.5f} bound_ms {b_ms:.6f} "
               f"({b_by}) call_ms {call_ms:.5f} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{kname} {dt} {label} disagrees with its plain version")
+        if b_ms > k_ms:
+            fail(f"{kname} {dt} {label}: {b_ms / k_ms:.1%} of its bound — the bound is "
+                 "priced wrong (more work than the card can do in that time)")
         lib_ms = None
         if library is not None:
             lib_ms = time_ms(torch, library)

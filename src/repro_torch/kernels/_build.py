@@ -137,8 +137,8 @@ _ARGTYPES = {
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
     # a, g, h, h_last; B, S, di; stream
     "rglru_scan": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
-    # u, dt, a, b, c, y, h_last; B, S, di, ds; stream
-    "mamba_scan": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    # u, dt, a, b, c, y, h_last; B, S, di, ds, vec; stream
+    "mamba_scan": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     # q, k, v, valid, out, part_m, part_l, part_acc; B, C, Hq, Hkv, Dh,
     # splits, tiles per split; softcap; scale; stream
     "decode_attention": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7

@@ -6,6 +6,11 @@ against the JAX package on the same numpy-seeded inputs.
   oracle ``mamba_scan_ref`` on the sweep of ``tests/test_kernels.py``, at
   its 1e-4; the last state against the final state of the JAX package's
   second scan (``models/model.py::_mamba_prefill``) at 1e-5.
+* The arithmetic of the ``mamba_scan`` kernel, which runs only on the card:
+  an emulation of its order of operations (exp as 2^(Δ·a·log₂e) in f32,
+  FMAs, y summed over 16 zero-padded states in order) against the Pallas
+  kernel and the oracle at 1e-4, at d_state 1 and 5 and on a long, slowly
+  decaying scan, and against the plain version at every d_state 1–16.
 * ``decode_attention`` (plain version) against the JAX ``decode_attention``
   (Pallas, interpret mode) on the sweep of ``tests/test_kernels.py``, a
   soft-capped case, a wrapped ring-buffer mask and a row with no valid
@@ -46,7 +51,7 @@ from repro_torch.kernels.decode_attention import kernel as decode_kernel_mod
 from repro_torch.kernels.decode_attention.kernel import decode_attention_kernel, split_plan
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.mamba_scan import kernel as scan_kernel_mod
-from repro_torch.kernels.mamba_scan.kernel import mamba_scan_kernel
+from repro_torch.kernels.mamba_scan.kernel import mamba_scan_kernel, vector_copies
 from repro_torch.models import build_model
 from repro_torch.models.attention import slot_valid
 from repro_torch.models.common import ParamModule, fill_param
@@ -104,6 +109,86 @@ def test_mamba_scan_plain_matches_oracle_and_final_state(b, s, di, ds):
     u, dt, a, b_t, _ = map(jnp.asarray, ins)
     np.testing.assert_allclose(h_last.numpy(), np.asarray(_j_final_state(u, dt, a, b_t)),
                                rtol=0, atol=1e-5)
+
+
+def _fma(x, y, z):
+    """x·y + z rounded once to float32, as an FMA: the product of two
+    floats is exact in float64."""
+    return (x.double() * y.double() + z.double()).float()
+
+
+def mamba_scan_emulated(u, dt, a, b, c):
+    """The arithmetic of ``csrc/mamba_scan.cu`` in torch, float32: a₂ =
+    a·log₂e once; each step du = Δ·u, exp(Δ·a) as 2^(Δ·a₂) rounded to
+    float32, h = fma(2^(Δ·a₂), h, du·b), y an FMA chain over the states in
+    order. The states run zero-padded to ``MAX_STATE`` (a₂ = b = c = 0), as
+    in the kernel's registers and tiles. u, dt (B, S, di); a (di, ds); b, c
+    (B, S, ds) → (y, h_last)."""
+    bsz, s, di = u.shape
+    ds = a.shape[1]
+    width = scan_kernel_mod.MAX_STATE
+    a2 = torch.zeros((di, width))
+    a2[:, :ds] = a * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    bp, cp = (torch.nn.functional.pad(x, (0, width - ds)) for x in (b, c))
+    h = torch.zeros((bsz, di, width))
+    y = torch.empty_like(u)
+    for t in range(s):
+        du = (dt[:, t] * u[:, t])[:, :, None]
+        h = _fma(torch.exp2(dt[:, t, :, None] * a2[None]), h, du * bp[:, t, None, :])
+        yt = torch.zeros((bsz, di))
+        for n in range(width):
+            yt = _fma(h[..., n], cp[:, t, None, n], yt)
+        y[:, t] = yt
+    return y, h[..., :ds]
+
+
+# SCAN_CASES, d_state 1 and 5 (most of the kernel's 16 states padded), and a
+# long scan whose state decays slowly (Δ ≈ 0.01), so it carries over the
+# sequence
+EMULATED_CASES = SCAN_CASES + [(2, 50, 40, 1), (1, 70, 300, 5), (1, 2048, 64, 16)]
+
+
+@pytest.mark.parametrize("b,s,di,ds", EMULATED_CASES)
+def test_mamba_scan_kernel_arithmetic_matches_pallas_and_oracle(b, s, di, ds):
+    """The card's order of operations (ex2 of Δ·a·log₂e, FMAs, y summed
+    over the padded states in order) within the reference's 1e-4 of the JAX
+    ``selective_scan`` (Pallas, interpret mode) and its oracle; the last
+    state within 1e-5 of the JAX package's final state."""
+    ins = _scan_inputs(b, s, di, ds, seed=s + di + ds)
+    if s == 2048:
+        ins = (ins[0], (0.01 * (0.9 + 0.2 * np.random.default_rng(3).random((b, s, di))))
+               .astype(np.float32)) + ins[2:]
+    y, h_last = mamba_scan_emulated(*map(torch.as_tensor, ins))
+    jins = tuple(map(jnp.asarray, ins))
+    np.testing.assert_allclose(y.numpy(), np.asarray(j_scan(*jins, interpret=True)),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(y.numpy(), np.asarray(mamba_scan_ref(*jins)), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(h_last.numpy(), np.asarray(_j_final_state(*jins[:4])),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("ds", range(1, scan_kernel_mod.MAX_STATE + 1))
+def test_mamba_scan_padded_states_cover_every_state_count(ds):
+    """Every d_state from 1 to 16 on the kernel's 16 registers: the states
+    padded past ds leave y and the last state as the plain scan gives
+    them."""
+    ins = tuple(map(torch.as_tensor, _scan_inputs(2, 23, 12, ds, seed=ds)))
+    y, h_last = mamba_scan_emulated(*ins)
+    y_plain, h_plain = mamba_scan_kernel(*ins)
+    assert h_last.shape == h_plain.shape == (2, 12, ds)
+    np.testing.assert_allclose(y.numpy(), y_plain.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(h_last.numpy(), h_plain.numpy(), rtol=0, atol=1e-5)
+
+
+def test_mamba_scan_vector_copies_need_aligned_rows():
+    """u and Δ go 16 bytes at a time only when each row is whole 16-byte
+    vectors and both tensors start on a 16-byte boundary."""
+    u = torch.zeros((2, 5, 64))
+    assert vector_copies(u, u.clone())
+    assert not vector_copies(torch.zeros((2, 5, 30)), torch.zeros((2, 5, 30)))
+    shifted = torch.zeros(2 * 5 * 64 + 1)[1:].view(2, 5, 64)
+    assert shifted.is_contiguous() and not vector_copies(shifted, u)
+    assert not vector_copies(u, shifted)
 
 
 # ------------------------------------------------------------ decode_attention
