@@ -13,7 +13,9 @@ of the JAX package. Phases:
    the same inputs, at the main path's shapes and a sweep around them
    (``acq_score_multi`` in all four modes; the scoring kernels also at the
    row buckets phases 4–5 reach, padded past the live rows as the engine
-   pads them): max error against the stated tolerance, kernel and plain
+   pads them, at the exact backend's largest bucket, 2048 rows, and at the
+   decision's re-rank of 8 points): max error against the stated tolerance,
+   kernel and plain
    times (CUDA events, median), and the card's lower bound for the same
    work; and ``slice_chain`` — a whole slice-sampling chain at the paper's
    configuration in one launch — against its plain version (the host
@@ -1010,17 +1012,43 @@ def main() -> None:
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             }
 
+    # The scoring wrappers plan their launches (kernel.py::walk_plan) with a
+    # mirror of the walk's shared-memory layout; hold it to the header's own
+    # (acq_walk.cuh Layout) at every row bucket the engine makes, both
+    # launch shapes, d up to 20 and both dtypes.
+    from repro_torch.kernels.acq_score.kernel import walk_plan
+    plans = 0
+    for lib_name in ("acq_score", "acq_score_multi"):
+        lib = _build.library(lib_name)
+        limit = getattr(lib, f"{lib_name}_smem_limit")(0)
+        header_bytes = getattr(lib, f"{lib_name}_smem_bytes")
+        for m_ in (1024, 8):
+            for n_ in [8 * 2**k for k in range(9)]:
+                for dp, elem in ((8, 8), (24, 8), (8, 4), (24, 4)):
+                    plan = walk_plan(10, m_, n_, dp, elem, sms, limit, lib_name)
+                    if header_bytes(plan.ta, plan.bm, n_, dp, elem) != plan.smem:
+                        fail(f"{lib_name}: walk_plan's shared memory {plan.smem} for "
+                             f"{plan} (n={n_}, d={dp}, {elem}-byte) is not the header's "
+                             f"{header_bytes(plan.ta, plan.bm, n_, dp, elem)}")
+                    plans += 1
+    print(f"walk plans: {plans} plans' shared memory equals acq_walk.cuh's layout "
+          f"(limit {limit} bytes)", flush=True)
+
     # Work counts use the problem's own sizes (the live train rows, d
     # features), not the padded widths the packed inputs carry. Besides full
     # buckets, the cases (live, bucket) are padded the way the engine pads
-    # the buckets the 64-trial main path reaches.
-    S, A = 10, 1024
-    cases = ([(d, n, n) for d in (6, 20) for n in (64, 256, 1024)]
-             + [(6, 5, 8), (6, 13, 16), (6, 27, 32), (6, 50, 64)])
+    # the buckets the 64-trial main path reaches. The anchor grid is A =
+    # 1024 anchors; the decision's second launch, the re-rank of the
+    # num_refine = 8 refined points, is held at the main shape (A = 8); and
+    # n = 2048 is the exact backend's largest bucket (n_switch).
+    S = 10
+    cases = ([(d, n, n, 1024) for d in (6, 20) for n in (64, 256, 1024)]
+             + [(6, 5, 8, 1024), (6, 13, 16, 1024), (6, 27, 32, 1024), (6, 50, 64, 1024)]
+             + [(6, 2048, 2048, 1024), (6, 64, 64, 8)])
     # row buckets held against the plain version, per scoring kernel; each
     # job of phases 4–5 must stay within its kernel's
-    checked_buckets = {"acq_score": {n for _, _, n in cases}}
-    for d, live, n in cases:
+    checked_buckets = {"acq_score": {n for _, _, n, _ in cases}}
+    for d, live, n, A in cases:
         post, _ = posterior(n, d, S, live)
         x_star = torch.as_tensor(rng.random((A, d))).to(dev)
         y_best = -1.0
@@ -1046,7 +1074,7 @@ def main() -> None:
                 lambda: acq_score_kernel(*args, y_best, 2.0, "ei"),
                 lambda: acq_score_plain(*args, y_best, 2.0, "ei"),
                 nbytes, flops,
-                main_shape=(dt == "f64" and live == n == 64 and d == 6),
+                main_shape=(dt == "f64" and live == n == 64 and d == 6 and A == 1024),
             )
         del post
 
@@ -1055,14 +1083,18 @@ def main() -> None:
     # constraint, W = 16 draws; rungs 4 heads; cost objective + log-cost),
     # at the shape buckets the 24-trial jobs of phase 5 reach — 8, 16 and
     # 32 rows, padded past the live rows as the engine pads them — and at
-    # full buckets of 64 and 1024 rows. The main path's shape, whose numbers
-    # the JSON line reports, is the largest bucket the jobs reach.
+    # full buckets of 64 and 1024 rows; pareto and rungs also at the exact
+    # backend's largest bucket (2048 rows), and pareto at the re-rank's 8
+    # anchors on the main shape. The main path's shape, whose numbers the
+    # JSON line reports, is the largest bucket the jobs reach.
     d, n_draws = 6, 16
     MULTI = {"constrained": (2, 1), "pareto": (3, 1), "rungs": (4, 0), "cost": (2, 0)}
-    multi_main = (23, 32)
-    multi_cases = ((7, 8), (13, 16), multi_main, (64, 64), (1024, 1024))
-    checked_buckets["acq_score_multi"] = {n for _, n in multi_cases}
-    for live, n in multi_cases:
+    multi_main = (23, 32, 1024)
+    multi_cases = ((7, 8, 1024), (13, 16, 1024), multi_main, (64, 64, 1024),
+                   (1024, 1024, 1024), (2048, 2048, 1024), (23, 32, 8))
+    multi_modes = {(2048, 1024): ("pareto", "rungs"), (32, 8): ("pareto",)}
+    checked_buckets["acq_score_multi"] = {n for _, n, _ in multi_cases}
+    for live, n, A in multi_cases:
         post, x_np = posterior(n, d, S, live)
         x_star = torch.as_tensor(rng.random((A, d))).to(dev)
         # smooth standardized head targets over the live rows, as metrics
@@ -1074,6 +1106,8 @@ def main() -> None:
         alphas = solve_head_alphas(post, torch.as_tensor(yh).to(dev))
         pad = "" if live == n else f" live={live}"
         for mode, (M, C) in MULTI.items():
+            if mode not in multi_modes.get((n, A), MULTI):
+                continue
             # the layouts the engine builds (see suggest.py's _decide_multi
             # and _decide_cost)
             t_std = np.full(C, 0.3)
@@ -1125,7 +1159,7 @@ def main() -> None:
                     lambda: acq_score_multi_kernel(*args),
                     lambda: acq_score_multi_plain(*args),
                     nbytes, flops,
-                    main_shape=(dt == "f64" and (live, n) == multi_main
+                    main_shape=(dt == "f64" and (live, n, A) == multi_main
                                 and mode == "pareto"),
                 )
         del post, alphas

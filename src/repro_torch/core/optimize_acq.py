@@ -17,8 +17,8 @@ Pipeline:
 Backends: ``AcqOptConfig.backend`` selects how stage 1 (and the final
 re-ranking) scores anchors. ``"kernel"`` (the default) dispatches EI/LCB to
 the fused predict+acquisition kernel (``repro_torch.kernels.acq_score``):
-cross-gram, cached-inverse solve and the closed form in one pass, K* never
-written to device memory. ``"torch"`` is the plain composition
+cross-gram, cached-inverse solve and the closed form on the card, each K*
+entry computed once. ``"torch"`` is the plain composition
 (``gp.predict`` + closed form). Stage 3 always evaluates through the torch
 composition — the kernel has no backward pass — so the dense anchor sweep is
 fused while the 8-point ascent keeps exact gradients.

@@ -120,16 +120,21 @@ def build_all() -> List[str]:
 
 
 _ARGTYPES = {
+    # ten inputs; y_best, kappa; out, workspace; S, m, n, d, acq, anchors a
+    # block, rows a row block; shared-memory bytes; stream
     "acq_score": [ctypes.c_void_p] * 10
     + [ctypes.c_double, ctypes.c_double]
-    + [ctypes.c_void_p]
-    + [ctypes.c_int] * 5
-    + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 7
+    + [ctypes.c_longlong, ctypes.c_void_p],
+    # thirteen inputs; y_best, has_feasible; out, workspace; S, m, n, d, M,
+    # C, wr, wc, mode, anchors a block, rows a row block; shared-memory
+    # bytes; stream
     "acq_score_multi": [ctypes.c_void_p] * 13
     + [ctypes.c_double, ctypes.c_double]
-    + [ctypes.c_void_p]
-    + [ctypes.c_int] * 10
-    + [ctypes.c_void_p],
+    + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 11
+    + [ctypes.c_longlong, ctypes.c_void_p],
     "matern52_gram": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     "matern52_cross": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
     # q, k, v, out; B, S, Hq, Hkv, Dh, window; softcap; scale; stream
@@ -150,7 +155,9 @@ _ARGTYPES = {
 }
 # Host-side helpers (no launch): name -> (argtypes, restype).
 _HELPERS = {
-    "acq_score_multi_smem_bytes": ([ctypes.c_int] * 7, ctypes.c_longlong),
+    "acq_score_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    "acq_score_smem_limit": ([ctypes.c_int], ctypes.c_longlong),
+    "acq_score_multi_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
     "acq_score_multi_smem_limit": ([ctypes.c_int], ctypes.c_longlong),
     "slice_chain_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
     "slice_chain_ws_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),

@@ -4,8 +4,10 @@
 ``backend="torch"`` is the plain composition (``gp.predict`` + closed-form
 EI/LCB; ``gp.multi.predict_heads`` + the multi-head closed forms).
 ``backend="kernel"`` packs the posterior in the reference's layout
-(``src/repro/kernels/acq_score/ops.py``) and calls the fused kernel: one
-pass per decision over the anchor grid, K* never written to device memory.
+(``src/repro/kernels/acq_score/ops.py``) and calls the fused kernel: up to
+64 train rows one launch with K* held in shared memory; above, each K*
+entry computed once into a workspace and then walked
+(``csrc/acq_walk.cuh``).
 
 The kernel's solve is the product L⁻¹K*ᵀ. The inverted factor comes from the
 posterior's ``chol_inv`` cache when the engine built one

@@ -303,6 +303,74 @@ def test_multi_wrapper_rejects_bad_inputs():
         acq_score_multi_kernel(*args[:-2], "rungs", 0)
 
 
+def test_multi_wrapper_takes_at_most_one_tile_of_heads(monkeypatch):
+    """The heads ride under L⁻¹ as one 16-row tile of the product: more
+    than 16 are refused before any launch."""
+    _, tpost, _, thead, _, xs = _multi_case("constrained", 10, 2, 2, seed=6)
+    args = list(pack_multi_inputs(tpost, thead, t(xs), "constrained"))
+    S, _, n = args[3].shape
+    args[3] = torch.zeros((S, 17, n), dtype=torch.float64)
+    monkeypatch.setattr(acq_kernel_mod, "check_inputs", lambda *a: "cuda")
+    with pytest.raises(ValueError, match="at most 16 heads"):
+        acq_score_multi_kernel(*args)
+
+
+def _spread_epilogue(mode, mu, var, t_std, y_best, has_feasible, weights, y_best_w):
+    """The multi kernel's epilogue as its four lanes per anchor compute it:
+    lane j takes constraint factors, draws (pareto) or heads (rungs) j,
+    j + 4, …; the lanes' partials meet by two butterfly steps."""
+    from scipy.special import erf
+
+    def ei(m, s, inc):
+        g = (inc - m) / s
+        cdf = 0.5 * (1 + erf(g / math.sqrt(2)))
+        e = s * (g * cdf + np.exp(-0.5 * g * g) / math.sqrt(2 * math.pi))
+        return np.maximum(e, 0.0)
+
+    def meet(parts, op):
+        a, b = op(parts[0], parts[1]), op(parts[2], parts[3])
+        return op(a, b)
+
+    M, C = mu.shape[1], len(t_std)
+    sigma = np.sqrt(np.maximum(var, 1e-12))
+    feas_parts = [np.ones_like(sigma) for _ in range(4)]
+    for c in range(C):
+        z = (t_std[c] - mu[:, M - C + c]) / sigma
+        feas_parts[c % 4] = feas_parts[c % 4] * 0.5 * (1 + erf(z / math.sqrt(2)))
+    feas = meet(feas_parts, np.multiply)
+    if mode == "constrained":
+        e0 = ei(mu[:, 0], sigma, y_best)
+        return e0 * feas if has_feasible else feas
+    if mode == "pareto":
+        parts = [np.zeros_like(sigma) for _ in range(4)]
+        for v, w in enumerate(weights):
+            ms = np.einsum("k,skm->sm", w, mu[:, : len(w)])
+            parts[v % 4] = parts[v % 4] + ei(ms, sigma * np.sqrt(np.sum(w * w)), y_best_w[v])
+        return meet(parts, np.add) / len(weights) * feas
+    if mode == "rungs":
+        parts = [np.zeros_like(sigma) for _ in range(4)]
+        for h in range(M):
+            parts[h % 4] = parts[h % 4] + weights[0, h] * ei(mu[:, h], sigma, y_best_w[h])
+        return meet(parts, np.add)
+    return ei(mu[:, 0], sigma, y_best) * np.exp(-weights[0, 0] * mu[:, 1])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_spread_epilogue_matches_the_closed_forms(mode):
+    from repro_torch.kernels.acq_score.plain import multi_closed_form
+
+    rng = np.random.default_rng(11)
+    S, m = 3, 50
+    mu = rng.standard_normal((S, HEADS, m))
+    var = rng.random((S, m)) * 2.0
+    h = _heads(mode, rng)
+    got = _spread_epilogue(mode, mu, var, h["t_std"], h["y_best"], h["has_feasible"],
+                           h["weights"], h["y_best_w"])
+    want = multi_closed_form(t(mu), t(var), mode, t(h["t_std"]), h["y_best"],
+                             h["has_feasible"], t(h["weights"]), t(h["y_best_w"])).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+
+
 # ------------------------------------------------------------ tuner twins
 
 
