@@ -20,8 +20,11 @@ of the JAX package. Phases:
    work; and ``slice_chain`` — a whole slice-sampling chain at the paper's
    configuration in one launch — against its plain version (the host
    chain) on the same draw table, at each row bucket 8–256 with both gram
-   types: kept samples to 1e-9 and equal counts, a differing branch passing
-   only as a near-tie of g and its slice level;
+   types and once from a start where the float32 gram is indefinite (every
+   shrink runs out): kept samples to 1e-9 and equal counts, a differing
+   branch passing only as a near-tie of g and its slice level; each chain
+   prints the kernel's cluster width W, rounds and points evaluated beside
+   the chain's own counts;
 3. invariance — the same short job twice on the card, anchors scored by the
    fused kernel and by the torch composition; the trial tables must agree;
    then the same for a Pareto job with a constraint (``acq_score_multi``);
@@ -30,7 +33,7 @@ of the JAX package. Phases:
    Adam steps, refit after every observation) with the single-metric
    kernels on; each refit is one ``slice_chain`` launch; the slowest GP
    decision is broken down (rows, row bucket, its chain's evaluations, NaN
-   factors and exhausted shrinks, its spans);
+   factors, exhausted shrinks and rounds, its spans);
 5. multi-metric and cost-aware paths — three 24-trial jobs at the same
    engine configuration: constrained (objective + latency constraint),
    Pareto (two objectives + the constraint) and cost-aware EI per unit
@@ -195,7 +198,7 @@ F32_SERVE_TOL = 1e-3
 # and 1e-9 leaves room only for that. A branch may differ where the two log
 # densities (an in-block Cholesky against cuSOLVER's) straddle the slice
 # level: that is a near-tie when |g − log_y| ≤ 1e-9·max(1, |log_y|) on both
-# sides; at most one chain of the twelve may end on one.
+# sides; at most one chain of the thirteen may end on one.
 CHAIN_TOL = 1e-9
 CHAIN_TIE = 1e-9
 CHAIN_MAX_TIES = 1
@@ -1206,16 +1209,28 @@ def main() -> None:
     # objective values, a few live rows under each row bucket the engine
     # makes up to 256 (8–128 keep the factor in shared memory, 256 in the
     # global workspace), from the engine's start and bounds; both gram
-    # types. Held as CHAIN_TOL / CHAIN_TIE say; the evaluation counts must
-    # be equal where no branch differs. The main path's shape is its largest
-    # bucket (60 of 64 rows) with its f32 gram.
-    # Bound: this run's work at the card's peaks — per evaluation in the box
-    # (the kernel's count), the gram (m(m+1)/2 entries × (3d + 10)
-    # operations and the warp, 12 per live row and feature) in the gram's
-    # type, and the factor with y as an extra row (m³/3 + m² f64) — against
-    # the bytes (x, y, mask, the table and the kept samples once). The chain
-    # is serial and runs on one SM: the one-SM bound (each type's peak over
-    # the SM count) is printed beside it. No PyTorch call computes a chain.
+    # types. Then the main path's shape (f32 gram) from a start where the
+    # float32 gram is indefinite — near-duplicate rows, amplitude near 20,
+    # noise near 1e-4 (ROADMAP C10's stuck chain): every log density in the
+    # box is NaN or below a NaN slice level, every shrink runs out, and the
+    # plain chain makes its ~10,500 host evaluations in about 10 s. Held as
+    # CHAIN_TOL / CHAIN_TIE say; the evaluation counts must be equal where
+    # no branch differs. The kernel evaluates the chain's points in rounds
+    # of up to W side by side; its rounds and the points it evaluated (some
+    # thrown away) are printed beside the chain's own counts. The main
+    # path's shape is its largest bucket (60 of 64 rows) with its f32 gram.
+    # Bound: this run's work at the card's peaks — per evaluation of the
+    # chain in the box (the kernel's count), the gram (m(m+1)/2 entries ×
+    # (3d + 10) operations and the warp, 12 per live row and feature) in the
+    # gram's type, and the factor with y as an extra row (m³/3 + m² f64) —
+    # against the bytes (x, y, mask, the table and the kept samples once).
+    # The points the rounds evaluate and throw away are not counted: the
+    # bound is the chain's work. The chain's decisions are serial, and a
+    # round runs on W SMs: the W-SM bound (each type's peak over the SM
+    # count, times W) is printed beside it. No PyTorch call computes a
+    # chain.
+    from repro_torch.kernels.slice_chain.plain import host_log_density
+
     chain_cfg = PAPER_CONFIG
     d = space.encoded_dim
     dim = P.GPHyperParams.packed_size(d)
@@ -1223,8 +1238,71 @@ def main() -> None:
     chain_z0 = np.clip(P.default_params(d).pack().numpy(),
                        chain_bounds.lower + 1e-4, chain_bounds.upper - 1e-4)
     crng = np.random.default_rng(16)
-    chain_cases = ((5, 8), (13, 16), (29, 32), (60, 64), (124, 128), (250, 256))
     ties = 0
+
+    def chain_case(label, x_np, y_np, live, z0, key, gram, main_shape=False):
+        nonlocal ties
+        n = x_np.shape[0]
+        draws = chain_draws(key, dim, chain_cfg)
+        xt, yt = torch.as_tensor(x_np).to(dev), torch.as_tensor(y_np).to(dev)
+        mt = torch.as_tensor(np.arange(n) < live).to(dev)
+        table = torch.as_tensor(pack_table(chain_bounds, z0, draws)).to(dev)
+        kept_k, counts_k, tr_k, sched = slice_chain_kernel(xt, yt, mt, table, chain_cfg, gram,
+                                                            trace=True, schedule=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept_p, counts_p, tr_p = slice_chain_plain(xt, yt, mt, table, chain_cfg, gram,
+                                                   trace=True)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        ck, cp = counts_k.cpu().numpy(), counts_p.cpu().numpy()
+        made, rounds, width = (int(v) for v in sched.cpu().numpy())
+        if kept_k.shape != kept_p.shape or not torch.isfinite(kept_k).all():
+            fail(f"{label}: kept samples of shape {tuple(kept_k.shape)}, or not finite")
+        div = chain_divergence(tr_k[: int(ck[0])].cpu().numpy(), tr_p.cpu().numpy(),
+                               draws.levels)
+        held = np.ones(chain_cfg.num_kept, dtype=bool)
+        tie_text = "every branch alike"
+        if div is not None:
+            e, update, tie = div
+            if not tie:
+                fail(f"{label}: evaluation {e} (update {update}) takes another "
+                     "branch than the plain chain, and not on a near-tie")
+            ties += 1
+            held = keep_rows(chain_cfg) < update
+            tie_text = (f"near-tie at evaluation {e} (update {update}): held "
+                        f"{int(held.sum())} of {chain_cfg.num_kept} kept rows")
+        held_t = torch.as_tensor(held, device=dev)
+        err = float((kept_k - kept_p).abs()[held_t].max()) if held.any() else 0.0
+        if err > CHAIN_TOL:
+            fail(f"{label}: kept samples differ by {err:.3e} from the plain chain")
+        if div is None and not np.array_equal(ck, cp):
+            fail(f"{label}: counts {ck.tolist()} against the plain chain's {cp.tolist()}")
+        k_ms = time_ms(torch, lambda: slice_chain_kernel(xt, yt, mt, table, chain_cfg, gram),
+                       reps=3 if n <= 64 else 1, warmup=0)
+        m, boxed = live, float(ck[3])
+        gram_ops = boxed * (m * (m + 1) // 2 * (3 * d + 10) + 12 * m * d)
+        factor_ops = boxed * (m ** 3 / 3 + m * m)
+        flops = ({"f32": gram_ops, "f64": factor_ops} if gram == torch.float32
+                 else {"f64": gram_ops + factor_ops})
+        nbytes = 8 * (n * d + n) + n + 8 * table.numel() + 8 * (kept_k.numel() + 4)
+        b_ms, b_by = bound_ms(nbytes, flops, peaks)
+        w_ms = sum(f / (peaks[u] / sms * width) for u, f in flops.items()) * 1e3
+        print(f"{label}: kept max |Δ| {err:.3e} (tol {CHAIN_TOL:.0e}; {tie_text}); "
+              f"evaluations {int(ck[0])} (plain {int(cp[0])}), NaN factors {int(ck[1])}, "
+              f"exhausted shrinks {int(ck[2])}, in the box {int(ck[3])}; W {width}, rounds "
+              f"{rounds} ({rounds / chain_cfg.num_samples:.2f} an update), points evaluated "
+              f"{made}; kernel_ms {k_ms:.5f} ({k_ms / rounds * 1e3:.3f} us a round, "
+              f"{b_ms / k_ms:.4%} of bound) plain_ms {p_ms:.5f} bound_ms {b_ms:.6f} "
+              f"({b_by}) {width}-SM bound {w_ms:.5f} ms; library none", flush=True)
+        if main_shape:
+            results["slice_chain"] = {
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            }
+        return ck
+
+    chain_cases = ((5, 8), (13, 16), (29, 32), (60, 64), (124, 128), (250, 256))
     for live, n in chain_cases:
         configs = [space.decode(u) for u in crng.random((live, d))]
         x_np = np.zeros((n, d))
@@ -1232,64 +1310,36 @@ def main() -> None:
         y_live = np.array([objective(c)[0][-1] for c in configs])
         y_np = np.zeros(n)
         y_np[:live] = (y_live - y_live.mean()) / y_live.std()
-        draws = chain_draws(prng.PRNGKey(n), dim, chain_cfg)
-        xt, yt = torch.as_tensor(x_np).to(dev), torch.as_tensor(y_np).to(dev)
-        mt = torch.as_tensor(np.arange(n) < live).to(dev)
-        table = torch.as_tensor(pack_table(chain_bounds, chain_z0, draws)).to(dev)
         for dt, gram in (("f32", torch.float32), ("f64", torch.float64)):
-            label = f"slice_chain {dt} T={chain_cfg.num_samples} n={n} live={live} d={d}"
-            kept_k, counts_k, tr_k = slice_chain_kernel(xt, yt, mt, table, chain_cfg, gram,
-                                                        trace=True)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            kept_p, counts_p, tr_p = slice_chain_plain(xt, yt, mt, table, chain_cfg, gram,
-                                                       trace=True)
-            torch.cuda.synchronize()
-            p_ms = (time.perf_counter() - t0) * 1e3
-            ck, cp = counts_k.cpu().numpy(), counts_p.cpu().numpy()
-            if kept_k.shape != kept_p.shape or not torch.isfinite(kept_k).all():
-                fail(f"{label}: kept samples of shape {tuple(kept_k.shape)}, or not finite")
-            div = chain_divergence(tr_k[: int(ck[0])].cpu().numpy(), tr_p.cpu().numpy(),
-                                   draws.levels)
-            held = np.ones(chain_cfg.num_kept, dtype=bool)
-            tie_text = "every branch alike"
-            if div is not None:
-                e, update, tie = div
-                if not tie:
-                    fail(f"{label}: evaluation {e} (update {update}) takes another "
-                         "branch than the plain chain, and not on a near-tie")
-                ties += 1
-                held = keep_rows(chain_cfg) < update
-                tie_text = (f"near-tie at evaluation {e} (update {update}): held "
-                            f"{int(held.sum())} of {chain_cfg.num_kept} kept rows")
-            held_t = torch.as_tensor(held, device=dev)
-            err = float((kept_k - kept_p).abs()[held_t].max()) if held.any() else 0.0
-            if err > CHAIN_TOL:
-                fail(f"{label}: kept samples differ by {err:.3e} from the plain chain")
-            if div is None and not np.array_equal(ck, cp):
-                fail(f"{label}: counts {ck.tolist()} against the plain chain's {cp.tolist()}")
-            k_ms = time_ms(torch, lambda: slice_chain_kernel(xt, yt, mt, table, chain_cfg, gram),
-                           reps=3 if n <= 64 else 1, warmup=0)
-            m, boxed = live, float(ck[3])
-            gram_ops = boxed * (m * (m + 1) // 2 * (3 * d + 10) + 12 * m * d)
-            factor_ops = boxed * (m ** 3 / 3 + m * m)
-            flops = ({"f32": gram_ops, "f64": factor_ops} if dt == "f32"
-                     else {"f64": gram_ops + factor_ops})
-            nbytes = 8 * (n * d + n) + n + 8 * table.numel() + 8 * (kept_k.numel() + 4)
-            b_ms, b_by = bound_ms(nbytes, flops, peaks)
-            sm_ms = sum(f / (peaks[u] / sms) for u, f in flops.items()) * 1e3
-            print(f"{label}: kept max |Δ| {err:.3e} (tol {CHAIN_TOL:.0e}; {tie_text}); "
-                  f"evaluations {int(ck[0])} (plain {int(cp[0])}), NaN factors {int(ck[1])}, "
-                  f"exhausted shrinks {int(ck[2])}, in the box {int(ck[3])}; kernel_ms "
-                  f"{k_ms:.5f} ({k_ms / ck[0] * 1e3:.3f} us an evaluation, "
-                  f"{b_ms / k_ms:.4%} of bound) plain_ms {p_ms:.5f} bound_ms {b_ms:.6f} "
-                  f"({b_by}) one-SM bound {sm_ms:.5f} ms; library none", flush=True)
-            if dt == "f32" and n == 64:
-                results["slice_chain"] = {
-                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                }
-    print(f"slice_chain: {ties} of {2 * len(chain_cases)} chains ended on a near-tie "
+            chain_case(f"slice_chain {dt} T={chain_cfg.num_samples} n={n} live={live} d={d}",
+                       x_np, y_np, live, chain_z0, prng.PRNGKey(n), gram,
+                       main_shape=(dt == "f32" and n == 64))
+    # the indefinite start at the main path's shape
+    live, n = 60, 64
+    irng = np.random.default_rng(64)
+    x_np = np.zeros((n, d))
+    x_np[:live] = (np.repeat(irng.random((live // 3, d)), 3, axis=0)
+                   + 1e-4 * irng.random((live, d)))
+    y_live = irng.standard_normal(live)
+    y_np = np.zeros(n)
+    y_np[:live] = (y_live - y_live.mean()) / y_live.std()
+    z0 = chain_z0.copy()
+    z0[d] = chain_bounds.upper[d] - 1e-4  # amplitude near 20
+    z0[d + 1] = chain_bounds.lower[d + 1] + 1e-4  # noise near 1e-4
+    box = (chain_bounds.lower, chain_bounds.upper, chain_bounds.center,
+           np.maximum(chain_bounds.width / 4.0, 1e-6))
+    g_start = host_log_density(torch.as_tensor(x_np).to(dev), torch.as_tensor(y_np).to(dev),
+                               torch.as_tensor(np.arange(n) < live).to(dev), box,
+                               torch.float32)(z0)
+    if not math.isnan(g_start):
+        fail(f"slice_chain indefinite case: g at the start is {g_start}, not NaN")
+    ck = chain_case(f"slice_chain f32 T={chain_cfg.num_samples} n={n} live={live} d={d} "
+                    "indefinite start", x_np, y_np, live, z0, prng.PRNGKey(65), torch.float32)
+    if int(ck[2]) != chain_cfg.num_samples:
+        fail(f"slice_chain indefinite case: {int(ck[2])} exhausted shrinks, not "
+             f"{chain_cfg.num_samples}")
+    n_chains = 2 * len(chain_cases) + 1
+    print(f"slice_chain: {ties} of {n_chains} chains ended on a near-tie "
           f"(at most {CHAIN_MAX_TIES})", flush=True)
     if ties > CHAIN_MAX_TIES:
         fail(f"slice_chain: {ties} chains ended on a near-tie")
@@ -1450,9 +1500,12 @@ def main() -> None:
             print(f"  launches {k}: {v} ({v / max(decisions, 1):.1f} per GP decision)",
                   flush=True)
         evals = [c["attrs"]["evaluations"] for c in chains]
+        rounds = [c["attrs"]["rounds"] for c in chains]
         stuck = sum(c["attrs"]["exhausted"] == PAPER_CONFIG.num_samples for c in chains)
         print(f"  chains: {refits}, evaluations per chain median "
-              f"{statistics.median(evals):.0f} (min {min(evals)}, max {max(evals)}); "
+              f"{statistics.median(evals):.0f} (min {min(evals)}, max {max(evals)}), rounds "
+              f"median {statistics.median(rounds):.0f} (max {max(rounds)}, W "
+              f"{chains[0]['attrs']['width']}); "
               f"NaN factors {sum(c['attrs']['nan_factors'] for c in chains)}, "
               f"exhausted shrinks {sum(c['attrs']['exhausted'] for c in chains)} in all; "
               f"{stuck} chains never moved (every shrink ran out)", flush=True)
@@ -1470,7 +1523,8 @@ def main() -> None:
         own = [c["attrs"] for c in chains if decision_of(c) == slow]
         chain_text = ("no refit" if not own else ", ".join(
             f"evaluations {a['evaluations']}, NaN factors {a['nan_factors']}, exhausted "
-            f"shrinks {a['exhausted']}, in the box {a['in_box']}, start amplitude "
+            f"shrinks {a['exhausted']}, in the box {a['in_box']}, rounds {a['rounds']}, "
+            f"points evaluated {a['made']}, start amplitude "
             f"{math.exp(a['start_log_amplitude']):.4g} noise std "
             f"{math.exp(a['start_log_noise']):.4g}" for a in own))
         print(f"  slowest GP decision: {slow_ms:.2f} ms ({slow_ms / statistics.median(dec):.2f}"

@@ -4,7 +4,8 @@
 every draw of the chain up front (``slice_sampler.chain_draws``); the chain
 itself runs in ``repro_torch.kernels.slice_chain``: on a CUDA tensor one
 kernel launch runs it whole — every evaluation's gram, factor and solve,
-and every branch — with the gram in float32 for ``backend="kernel"`` and
+and every branch, a round of points side by side on a cluster of blocks —
+with the gram in float32 for ``backend="kernel"`` and
 float64 for ``"torch"``, and one read-back returns the kept samples. On a
 CPU tensor its plain version runs the chain on the host. There is no
 fallback: a failed build or launch raises.
@@ -38,12 +39,13 @@ def mcmc_gphps(
 
     z0 = np.asarray(z0, dtype=np.float64)
     draws = chain_draws(key, z0.shape[0], cfg)
-    samples, counts = slice_chain(x, y, mask, bounds, z0, draws, cfg, backend)
+    samples, counts, schedule = slice_chain(x, y, mask, bounds, z0, draws, cfg, backend)
     d = x.shape[-1]
     telemetry.event(
         "gphp.slice_chain", rows=int(x.shape[0]), evaluations=int(counts[0]),
         nan_factors=int(counts[1]), exhausted=int(counts[2]),
-        in_box=int(counts[3]), start_log_amplitude=float(z0[d]),
+        in_box=int(counts[3]), made=int(schedule[0]), rounds=int(schedule[1]),
+        width=int(schedule[2]), start_log_amplitude=float(z0[d]),
         start_log_noise=float(z0[d + 1]),
     )
     return samples

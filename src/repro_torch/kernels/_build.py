@@ -149,9 +149,9 @@ _ARGTYPES = {
     "decode_attention": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
     # x, y, mask, table, out, trace, ws; n, d, T, burn_in, thin, kept,
-    # max_stepout, max_shrink; step; stream
+    # max_stepout, max_shrink; step; cluster width; stream
     "slice_chain": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-    + [ctypes.c_double, ctypes.c_void_p],
+    + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p],
 }
 # Host-side helpers (no launch): name -> (argtypes, restype).
 _HELPERS = {
@@ -159,7 +159,8 @@ _HELPERS = {
     "acq_score_smem_limit": ([ctypes.c_int], ctypes.c_longlong),
     "acq_score_multi_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
     "acq_score_multi_smem_limit": ([ctypes.c_int], ctypes.c_longlong),
-    "slice_chain_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
+    "slice_chain_smem_bytes": ([ctypes.c_int] * 6, ctypes.c_longlong),
+    "slice_chain_width": ([ctypes.c_int] * 6, ctypes.c_int),
     "slice_chain_ws_bytes": ([ctypes.c_int] * 3, ctypes.c_longlong),
     "slice_chain_smem_limit": ([ctypes.c_int], ctypes.c_longlong),
 }

@@ -1,42 +1,60 @@
 // A whole GPHP slice-sampling chain in one launch: every log-density
 // evaluation, its gram, Cholesky factor and solve, and every stepping-out
-// and shrink decision of the chain, in one block.
+// and shrink decision of the chain, on a cluster of W blocks that evaluate
+// the chain's predetermined points side by side.
 //
 // Replaces the TPU route src/repro/core/gp/fit.py::mcmc_gphps with
 // backend="pallas": src/repro/kernels/matern52/kernel.py::matern52_gram_pallas
 // called inside the jitted lax.fori_loop chain of
 // src/repro/core/gp/slice_sampler.py (one gram, Cholesky and cho_solve per
-// evaluation, the branches decided on the device). The port ran that loop on
-// the host, one gram launch, cuSOLVER factor and read-back per evaluation.
+// evaluation, the branches decided on the device).
 //
-// What bounds it: the chain is serial — each evaluation's point depends on
-// the branch the last one took — so only one SM can work on it, at one SM's
-// f64 rate, and each evaluation's factor is n dependent pivot steps (the
-// main path's n ≤ 64), each a rank-1 update of the trailing block that the
-// next pivot waits for. The card-wide bound (all SMs, HBM) is far below
-// what one chain can reach.
+// What bounds it: the chain's decisions are serial, and each evaluation's
+// factor is m dependent pivot steps (the main path's m ≤ 64), each a rank-1
+// update of the trailing block that the next pivot waits for: latency, not
+// bytes or operations. The card-wide bound (all SMs, HBM) is far below what
+// one chain can reach.
 //
-// What the design does about it: one block of 256 threads keeps the whole
-// evaluation on chip — the warped rows (type T), the live block of the masked
-// gram and its f64 factor in shared memory (up to 128 rows; beyond that in a
-// global workspace, which stays in L2), so nothing but the draw table is read
-// from device memory and nothing but the kept samples is written. Masked
-// rows are identity rows of the masked gram and are left out of the factor
-// (exactly: they decouple). y rides along as an extra row of the factor, so
-// the forward solve L⁻¹y falls out of the factorization with no serial
-// triangular solve. The factor goes kPanel pivots at a time, two barriers
-// a panel: a panel reads its kPanel columns from buffers the previous panel
-// filled as it updated them; every thread factors the panel's small top
-// block itself (no barrier for it); each row's panel values go to shared
-// memory, one row a thread; then the rank-kPanel update (a_ij −= Σ
-// a_iu·a_ju / a_uu, L never stored) fills the other buffers with the next
-// panel's columns. The gram and the update run on a 16 × 16 thread grid,
-// a handful of independent entries a thread. The pivots and y's entries
+// What the design does about it. The chain's points are not serial, only
+// its decisions: g decides where each sequence stops, never which points it
+// holds. Stepping out visits lo₀ − k·w and hi₀ + k·w; once the bracket is
+// fixed, the shrink proposals t₁…t₃₂ are fixed too (a rejected t moves lo
+// when t < 0 and hi otherwise, whatever g was), from the host-made draws.
+// So each round evaluates up to W of these points at once, one a block of a
+// thread-block cluster (W ≤ 16, one block an SM, each with its factor in
+// its own shared memory): the next kDepth stepping-out points of each side
+// still open, and the shrink proposals of every bracket those points can
+// end on (or of the known bracket), dealt out one a bracket in turn. Thread
+// 0 of every block plans the round and decides it from the same values, so
+// the blocks stay in step; the values go to every block's shared memory
+// through distributed shared memory, one cluster barrier a round. Stepping
+// out stops on each side at its first g ≤ log_y, the shrink takes the first
+// t with g > log_y (or stays put after max_shrink), exactly as the chain
+// does one point at a time. g(0) is carried: it is the value at the point
+// the last update accepted (the same bits: z and that point are both
+// z + t·dir, rounded alike), or at the same z after an exhausted shrink; it
+// is evaluated only at update 0. The counts and the trace are the
+// sequential chain's own — its logical evaluations, g(0) included, in its
+// order; the points a round evaluated and threw away, and the rounds, are
+// counted apart (after the four counts).
+//
+// One evaluation, in its block of 256 threads: the warped rows (type T), the
+// live block of the masked gram and its f64 factor in shared memory (up to
+// 128 rows; beyond that in a global workspace of the block's own, which
+// stays in L2), so nothing but the draw table is read from device memory
+// and nothing but the kept samples is written. Masked rows are identity
+// rows of the masked gram and are left out of the factor (exactly: they
+// decouple). y rides along as an extra row of the factor, so the forward
+// solve L⁻¹y falls out of the factorization with no serial triangular
+// solve. The factor goes kPanel pivots at a time, two barriers a panel: a
+// panel reads its kPanel columns from buffers the previous panel filled as
+// it updated them; every thread factors the panel's small top block itself
+// (no barrier for it); each row's panel values go to shared memory, one row
+// a thread; then the rank-kPanel update (a_ij −= Σ a_iu·a_ju / a_uu, L never
+// stored) fills the other buffers with the next panel's columns. The gram
+// and the update run on a 16 × 16 thread grid. The pivots and y's entries
 // are recorded as they pass; the logs and the quadratic form are summed on
-// warp 0 at the end, off the pivots' serial path. A scratch comparison
-// found other panel widths no faster (6 and 8 spill registers). The
-// chain's control flow is uniform across the block: every thread computes
-// the same scalars, so no branch needs a broadcast.
+// warp 0 at the end.
 //
 // The draws come from the host (repro_torch.core.gp.slice_sampler
 // .chain_draws): none depends on the chain's state. The host arithmetic the
@@ -59,22 +77,33 @@
 //   levels (T) | offsets (T) | shrink unit draws (T × max_shrink)
 // with D = 3d + 2. Output (f64): the kept samples (kept × D), then the
 // counts [evaluations, NaN log densities, exhausted shrinks, evaluations in
-// the box]. With a trace pointer, (update, g) for every evaluation.
+// the box] of the sequential chain, then [evaluations made, rounds]. With a
+// trace pointer, (update, g) for every evaluation of the sequential chain.
 // Every entry point returns cudaGetLastError() after its launch.
+//
+// Built with -DSLICE_CHAIN_STAMPS (tools/slice_chain_variants.py only),
+// thread 0 of each block sums clock64() cycles by stage of an evaluation and
+// of a round; with -DSLICE_CHAIN_REEVAL_G0, g(0) is evaluated at every
+// update, as the sequential chain does.
 
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include "matern52_common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kGrid = 16;  // the factor's update runs on a kGrid × kGrid thread grid
 static_assert(kGrid * kGrid == kThreads, "one thread per grid cell");
 constexpr int kPanel = 4;  // pivots per barrier of the factor
 constexpr double kLog2Pi = 1.8378770664093453;
 constexpr double kJitter = 1e-8;
+constexpr int kMaxWidth = 16;  // blocks a cluster: evaluations a round
+constexpr int kDepth = 2;      // stepping-out points a round takes from each open side
+constexpr int kMaxCand = kDepth * kDepth;  // brackets a round's shrink slots may assume
 
 struct Chain {
   const double* x;             // (n, d) inputs, bucket-padded
@@ -83,23 +112,59 @@ struct Chain {
   const double* table;         // the draw table (see the note above)
   double* out;                 // kept × D samples, then the counts
   double* trace;               // (evaluations, 2) or null
-  double* ws;                  // factor and rows in device memory, or null
+  double* ws;                  // W factors and rows in device memory, or null
   int n, d, T, burn_in, thin, kept, max_stepout, max_shrink;
   double step;
+};
+
+// A round's slots: what each block evaluates, and what the value decides.
+enum SlotKind : int { kG0 = 0, kLeft = 1, kRight = 2, kShrink = 3 };  // kShrink + bracket
+
+struct Plan {
+  double t[kMaxWidth];  // the point z + t·direction
+  int kind[kMaxWidth];
+  int count;            // slots used this round (≤ W)
+  int done;             // the update is decided
+  double t_fin;         // its step along the direction
+};
+
+// The chain's state, kept by thread 0 of every block alike.
+struct Sched {
+  double g0, log_y;
+  double pt[2];           // each side's next stepping-out point (its bracket end once stopped)
+  int k[2];               // points each side has stepped past
+  int open[2];            // the side may step out further
+  int nside[2], nshr;     // logged values of each side and of the shrink
+  int real;               // the bracket is known: lo, hi, j are the shrink's own
+  double lo, hi;
+  int j;
+  int cand_k[kMaxCand][2];  // the stops each bracket of this round's shrink slots assumes (−1: none)
+  int g0_known;
+  double evals, nans, exhausted, boxed, made, rounds;
+  long long e;            // trace rows written
 };
 
 __host__ __device__ inline size_t round8(size_t bytes) { return (bytes + 7) & ~size_t(7); }
 __host__ __device__ inline int lda_of(int n) { return n | 1; }  // odd: no bank conflicts
 
-// The small arrays, in bytes: box (4D), z, dir, p (D each), y of the live
-// rows (n), two sets of kPanel raw column buffers and the panel's values
-// and scaled values (kPanel × (n + 1) each), the pivots and y's entries as
-// the factor passes them (n each), the update's shrink draws (max_shrink),
-// four result slots, the packed gram parameters (4d + 1 of T), the
-// live-row list (n + 1).
-__host__ __device__ inline size_t small_bytes(int n, int d, int max_shrink, int tsize) {
+// The small arrays, in bytes: the schedule (Plan, Sched, two rounds of W
+// values, each side's and the shrink's logged values), box (4D), z, dir, p
+// (D each), y of the live rows (n), two sets of kPanel raw column buffers
+// and the panel's values and scaled values (kPanel × (n + 1) each), the
+// pivots and y's entries as the factor passes them (n each), the update's
+// shrink draws, level and offset (max_shrink + 2), four result slots, the
+// packed gram parameters
+// (4d + 1 of T), the live-row list (n + 1).
+__host__ __device__ inline size_t sched_bytes(int max_stepout, int max_shrink) {
+  return round8(sizeof(Plan)) + round8(sizeof(Sched))
+         + 8 * (size_t)(2 * kMaxWidth + 2 * max_stepout + max_shrink);
+}
+
+__host__ __device__ inline size_t small_bytes(int n, int d, int max_stepout, int max_shrink,
+                                              int tsize) {
   const int D = 3 * d + 2;
-  return 8 * (size_t)(7 * D + 3 * n + 4 * kPanel * (n + 1) + max_shrink + 4)
+  return sched_bytes(max_stepout, max_shrink)
+         + 8 * (size_t)(7 * D + 3 * n + 4 * kPanel * (n + 1) + max_shrink + 6)
          + round8((size_t)(4 * d + 1) * tsize) + round8(4 * (size_t)(n + 1));
 }
 
@@ -110,7 +175,10 @@ __host__ __device__ inline size_t big_bytes(int n, int d, int tsize) {
 
 template <typename T>
 struct Smem {
-  double *box, *z, *dir, *p, *yl, *pan[2], *pv, *pb, *piv, *wy, *shrink, *red;
+  Plan* plan;
+  Sched* sc;
+  double *gv, *gside, *gshr;
+  double *box, *z, *dir, *p, *yl, *pan[2], *pv, *pb, *piv, *wy, *shrink, *red;  // shrink: + level, offset
   T* par;
   int* live;
   double* A;
@@ -119,11 +187,17 @@ struct Smem {
 };
 
 template <typename T>
-__device__ Smem<T> carve(unsigned char* smem, double* ws, int n, int d, int max_shrink) {
+__device__ Smem<T> carve(unsigned char* smem, double* ws, int n, int d, int max_stepout,
+                         int max_shrink) {
   const int D = 3 * d + 2;
   Smem<T> s;
-  double* f = reinterpret_cast<double*>(smem);
-  s.box = f;
+  s.plan = reinterpret_cast<Plan*>(smem);
+  s.sc = reinterpret_cast<Sched*>(smem + round8(sizeof(Plan)));
+  double* f = reinterpret_cast<double*>(smem + round8(sizeof(Plan)) + round8(sizeof(Sched)));
+  s.gv = f;                        // [2][kMaxWidth]: a round's values, by round parity
+  s.gside = s.gv + 2 * kMaxWidth;  // [2][max_stepout]
+  s.gshr = s.gside + 2 * max_stepout;
+  s.box = s.gshr + max_shrink;
   s.z = s.box + 4 * D;
   s.dir = s.z + D;
   s.p = s.dir + D;
@@ -135,7 +209,7 @@ __device__ Smem<T> carve(unsigned char* smem, double* ws, int n, int d, int max_
   s.piv = s.pb + kPanel * (n + 1);
   s.wy = s.piv + n;
   s.shrink = s.wy + n;
-  s.red = s.shrink + max_shrink;
+  s.red = s.shrink + max_shrink + 2;
   unsigned char* b = reinterpret_cast<unsigned char*>(s.red + 4);
   s.par = reinterpret_cast<T*>(b);
   b += round8((size_t)(4 * d + 1) * sizeof(T));
@@ -147,6 +221,47 @@ __device__ Smem<T> carve(unsigned char* smem, double* ws, int n, int d, int max_
   s.rows = reinterpret_cast<T*>(s.A + (size_t)(n + 1) * s.lda);
   return s;
 }
+
+// Stage stamps (tools/slice_chain_variants.py): thread 0 of each block sums
+// the clock64() cycles from its last stamp into a stage.
+enum Stage : int {
+  kStBox, kStPack, kStRows, kStGram, kStTop, kStValues, kStUpdate, kStLogdet,
+  kStPlan, kStPoint, kStExchange, kStages
+};
+#ifdef SLICE_CHAIN_STAMPS
+__device__ unsigned long long g_stamps[kMaxWidth][kStages + 1];  // + evaluations made
+__shared__ unsigned long long st_sum[kStages + 1];
+__shared__ long long st_last;
+__device__ __forceinline__ void stamp(int stage) {
+  if (threadIdx.x == 0) {
+    const long long now = clock64();
+    st_sum[stage] += (unsigned long long)(now - st_last);
+    st_last = now;
+  }
+}
+__device__ __forceinline__ void stamp_reset() {
+  if (threadIdx.x == 0) st_last = clock64();
+}
+__device__ __forceinline__ void stamp_count() {
+  if (threadIdx.x == 0) st_sum[kStages] += 1;
+}
+__device__ __forceinline__ void stamp_init() {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages; ++i) st_sum[i] = 0;
+  }
+}
+__device__ __forceinline__ void stamp_flush() {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i <= kStages; ++i) g_stamps[blockIdx.x][i] += st_sum[i];
+  }
+}
+#else
+__device__ __forceinline__ void stamp(int) {}
+__device__ __forceinline__ void stamp_reset() {}
+__device__ __forceinline__ void stamp_count() {}
+__device__ __forceinline__ void stamp_init() {}
+__device__ __forceinline__ void stamp_flush() {}
+#endif
 
 // A panel of bb ≤ kPanel pivots k..k+bb−1 of the factor, held without L:
 // for a row x, its panel values a'_x,u = P[u][x] − Σ_{s<u} a'_x,s·m[u][s]
@@ -239,6 +354,7 @@ __device__ __forceinline__ void panel_update(double* __restrict__ A, int lda,
     for (int u = 0; u < kPanel; ++u) bj[u] = u < bb ? pb[u * ld + j] : 0.0;
     int i = k1 + ty;
     if (i < j) i += (j - i + kGrid - 1) / kGrid * kGrid;
+#pragma unroll 4  // independent entries in flight: shorter latency, the same bits
     for (; i <= m; i += kGrid) {
       double* a = A + (size_t)i * lda + j;
       double v = *a;
@@ -254,8 +370,8 @@ __device__ __forceinline__ void panel_update(double* __restrict__ A, int lda,
 
 // The log posterior density at the point s.p, as fit.py's host target
 // computes it: −inf outside the box; else the Gaussian prior plus the log
-// marginal likelihood of the live rows. Called by every thread; returns the
-// same value in every thread.
+// marginal likelihood of the live rows. Called by every thread of a block;
+// returns the same value in every thread.
 template <typename T>
 __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
   const int tid = threadIdx.x;
@@ -282,6 +398,7 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
       s.red[2] = q;
     }
   }
+  stamp(kStBox);
   const double noise = exp(2.0 * s.p[d + 1]) + kJitter;
 
   // the gram's parameters, packed as kernels/matern52/ops.py packs them
@@ -295,6 +412,7 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
   }
   if (tid == 0) s.par[4 * d] = repro::f_exp(T(2) * T(s.p[d]));
   __syncthreads();
+  stamp(kStPack);
   if (s.red[1] == 0.0) return -INFINITY;  // outside the box: no gram
 
   // warped, scaled live rows
@@ -306,6 +424,7 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
         s.par[3 * d + k], s.par[k]);
   }
   __syncthreads();
+  stamp(kStRows);
 
   // lower triangle of the live block of the masked gram (noise on the
   // diagonal), and y below it as row m, on the 16 × 16 thread grid (rows
@@ -328,6 +447,7 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
     }
   }
   __syncthreads();
+  stamp(kStGram);
 
   // right-looking Cholesky of the (m + 1)-row block in panels of kPanel
   // pivots: rows 0..m−1 give L, row m gives w = L⁻¹y. Pivot k is L_kk², and
@@ -344,10 +464,13 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
         if (u < bb) s.piv[k + u] = piv[u];
       }
     }
+    stamp(kStTop);
     panel_values(s.pan[p], s.pv, s.pb, s.wy, ld, k, bb, m, t);
     __syncthreads();
+    stamp(kStValues);
     panel_update(s.A, s.lda, s.pv, s.pb, s.pan[p ^ 1], ld, k, bb, m);
     __syncthreads();
+    stamp(kStUpdate);
   }
 
   // logdet = Σ log L_kk² and quad = ‖w‖² = Σ wy_k² / L_kk², on warp 0
@@ -367,15 +490,274 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
     }
   }
   __syncthreads();
+  stamp(kStLogdet);
   return s.red[0];
+}
+
+// ---------------------------------------------------------------- schedule
+// Thread 0 of every block runs these on the same values, so every block
+// holds the same plan and state. The arithmetic is the sequential chain's
+// (slice_sampler.py::_one_direction_update), one rounding an operation. The
+// state lives in shared memory between rounds; each function reads what it
+// needs into registers and writes back what changed.
+
+// The next point a side would step to from t: t − w on the left, t + w on
+// the right.
+__device__ __forceinline__ double step_from(double t, int side, double w) {
+  return __dadd_rn(t, side ? w : -w);
+}
+
+// np.maximum(lo, u·(hi − lo) + lo): the shrink's proposal of unit draw u.
+__device__ __forceinline__ double shrink_point(double u, double lo, double hi) {
+  const double x = __dadd_rn(__dmul_rn(u, __dsub_rn(hi, lo)), lo);
+  return lo >= x ? lo : x;
+}
+
+// Start update `it`: the bracket's first points, both sides open (unless
+// stepping out is off), no shrink state.
+__device__ __noinline__ void begin_update(Sched* __restrict__ sc, const Chain& c,
+                                          double level, double offset) {
+  const double lo = __dmul_rn(-c.step, offset);
+  sc->pt[0] = lo;
+  sc->pt[1] = __dadd_rn(lo, c.step);
+#ifdef SLICE_CHAIN_REEVAL_G0
+  sc->g0_known = 0;
+#endif
+  if (sc->g0_known) sc->log_y = __dsub_rn(sc->g0, level);
+  const int open = c.max_stepout > 0;
+  sc->k[0] = sc->k[1] = 0;
+  sc->open[0] = sc->open[1] = open;
+  sc->nside[0] = sc->nside[1] = 0;
+  sc->nshr = 0;
+  sc->real = 0;
+  sc->j = 0;
+}
+
+// Plan a round of up to W slots: g(0) if unknown; the next kDepth points of
+// each open side; then the shrink proposals of each bracket those points
+// can end on (or of the known bracket), one a bracket in turn. Bracket q =
+// a·kDepth + b ends on the left side's a-th point of the round and the right
+// side's b-th (a side already stopped has only its stop, a = 0).
+__device__ __noinline__ void plan_round(Sched* __restrict__ sc, Plan* __restrict__ pl,
+                                        const double* __restrict__ us, int max_stepout,
+                                        int max_shrink, double w, int W) {
+  int n = 0;
+  if (!sc->g0_known) {
+    pl->t[0] = 0.0;
+    pl->kind[0] = kG0;
+    n = 1;
+  }
+  double stop_t[2][kDepth];
+  int stop_k[2][kDepth];
+  int stops[2];
+#pragma unroll
+  for (int side = 0; side < 2; ++side) {
+    const double pt = sc->pt[side];
+    const int k = sc->k[side];
+#pragma unroll
+    for (int i = 0; i < kDepth; ++i) {
+      stop_t[side][i] = pt;
+      stop_k[side][i] = k;
+    }
+    if (!sc->open[side]) {
+      stops[side] = 1;
+      continue;
+    }
+    const int a = min(min(kDepth, max_stepout - k), W - n);
+    double t = pt;
+#pragma unroll
+    for (int i = 0; i < kDepth; ++i) {
+      if (i < a) {
+        pl->t[n + i] = t;
+        pl->kind[n + i] = kLeft + side;
+        stop_t[side][i] = t;
+        stop_k[side][i] = k + i;
+        t = step_from(t, side, w);
+      }
+    }
+    n += a;
+    stops[side] = a;
+  }
+  double lo[kMaxCand], hi[kMaxCand];
+  int j[kMaxCand];
+  bool valid[kMaxCand];
+  const bool real = sc->real;
+#pragma unroll
+  for (int q = 0; q < kMaxCand; ++q) {
+    const int a = q / kDepth, b = q % kDepth;
+    valid[q] = real ? q == 0 : (a < stops[0] && b < stops[1]);
+    lo[q] = real ? sc->lo : stop_t[0][a];
+    hi[q] = real ? sc->hi : stop_t[1][b];
+    j[q] = real ? sc->j : 0;
+    sc->cand_k[q][0] = valid[q] ? stop_k[0][a] : -1;
+    sc->cand_k[q][1] = valid[q] ? stop_k[1][b] : -1;
+  }
+  for (bool any = true; any && n < W;) {
+    any = false;
+#pragma unroll
+    for (int q = 0; q < kMaxCand; ++q) {
+      if (valid[q] && n < W && j[q] < max_shrink) {
+        // a rejected proposal moves lo or hi by its sign, whatever g was
+        const double t = shrink_point(us[j[q]], lo[q], hi[q]);
+        pl->t[n] = t;
+        pl->kind[n] = kShrink + q;
+        ++n;
+        if (t < 0.0) {
+          lo[q] = t;
+        } else {
+          hi[q] = t;
+        }
+        ++j[q];
+        any = true;
+      }
+    }
+  }
+  pl->count = n;
+}
+
+// One side's stepping-out value: past its stop it is thrown away; else it
+// is logged, and the side steps past it (g > log_y) or stops at it.
+__device__ __forceinline__ void side_value(double v, double log_y, int side, double w,
+                                           int max_stepout, int& k, int& open, int& nside,
+                                           double& pt, double* __restrict__ logged) {
+  if (!open) return;
+  logged[nside++] = v;
+  if (v > log_y) {
+    ++k;
+    pt = step_from(pt, side, w);
+    open = k < max_stepout;
+  } else {
+    open = 0;
+  }
+}
+
+// Read a round's values in the sequential chain's order; true once the
+// update is decided (pl->t_fin set, its logical evaluations counted and, on
+// rank 0, traced).
+__device__ __noinline__ bool decide_round(Sched* __restrict__ sc, Plan* __restrict__ pl,
+                                          const double* __restrict__ gv,
+                                          double* __restrict__ gside,
+                                          double* __restrict__ gshr, const Chain& c, int it,
+                                          double level, bool writer) {
+  const int count = pl->count;
+  const int ms = c.max_stepout;
+  double g0 = sc->g0, log_y = sc->log_y;
+  int k0 = sc->k[0], k1 = sc->k[1], open0 = sc->open[0], open1 = sc->open[1];
+  int ns0 = sc->nside[0], ns1 = sc->nside[1];
+  double pt0 = sc->pt[0], pt1 = sc->pt[1];
+  for (int r = 0; r < count; ++r) {
+    const int kind = pl->kind[r];
+    const double v = gv[r];
+    if (kind == kG0) {
+      g0 = v;
+      log_y = __dsub_rn(v, level);
+    } else if (kind == kLeft) {
+      side_value(v, log_y, 0, c.step, ms, k0, open0, ns0, pt0, gside);
+    } else if (kind == kRight) {
+      side_value(v, log_y, 1, c.step, ms, k1, open1, ns1, pt1, gside + ms);
+    }
+  }
+  sc->g0 = g0;
+  sc->log_y = log_y;
+  sc->g0_known = 1;
+  sc->k[0] = k0;
+  sc->k[1] = k1;
+  sc->open[0] = open0;
+  sc->open[1] = open1;
+  sc->nside[0] = ns0;
+  sc->nside[1] = ns1;
+  sc->pt[0] = pt0;
+  sc->pt[1] = pt1;
+  sc->made += count;
+  sc->rounds += 1.0;
+  if (open0 || open1) return false;
+
+  // both sides stopped: the bracket is (pt0, pt1); the shrink slots that
+  // assumed it hold, the others are thrown away
+  double lo = pt0, hi = pt1;
+  int j = 0, want = -1;
+  if (sc->real) {
+    lo = sc->lo;
+    hi = sc->hi;
+    j = sc->j;
+    want = 0;
+  } else {
+#pragma unroll
+    for (int q = 0; q < kMaxCand; ++q) {
+      if (sc->cand_k[q][0] == k0 && sc->cand_k[q][1] == k1) want = q;
+    }
+  }
+  int nshr = sc->nshr;
+  bool accepted = false;
+  double t_acc = 0.0;
+  for (int r = 0; r < count && j < c.max_shrink && want >= 0; ++r) {
+    if (pl->kind[r] != kShrink + want) continue;
+    const double t = pl->t[r];
+    const double v = gv[r];
+    gshr[nshr++] = v;
+    ++j;
+    if (v > log_y) {
+      accepted = true;
+      t_acc = t;
+      break;
+    }
+    if (t < 0.0) {
+      lo = t;
+    } else {
+      hi = t;
+    }
+  }
+  sc->real = 1;
+  sc->lo = lo;
+  sc->hi = hi;
+  sc->j = j;
+  sc->nshr = nshr;
+  if (!accepted && j < c.max_shrink) return false;
+
+  // decided: the update's logical evaluations, in the chain's order
+  double evals = sc->evals, nans = sc->nans, boxed = sc->boxed;
+  long long e = sc->e;
+  auto logical = [&](double v) {
+    evals += 1.0;
+    nans += v != v ? 1.0 : 0.0;
+    boxed += v != -INFINITY ? 1.0 : 0.0;
+    if (writer && c.trace != nullptr) {
+      c.trace[2 * e] = (double)it;
+      c.trace[2 * e + 1] = v;
+    }
+    ++e;
+  };
+  logical(g0);
+  for (int i = 0; i < ns0; ++i) logical(gside[i]);
+  for (int i = 0; i < ns1; ++i) logical(gside[ms + i]);
+  for (int i = 0; i < nshr; ++i) logical(gshr[i]);
+  sc->evals = evals;
+  sc->nans = nans;
+  sc->boxed = boxed;
+  sc->e = e;
+  if (accepted) {
+    sc->g0 = gshr[nshr - 1];  // g(0) of the next update: the same point's value
+  } else {
+    sc->exhausted += 1.0;  // stay put: g(0) stays
+  }
+  pl->t_fin = accepted ? t_acc : 0.0;
+  return true;
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) chain_kernel(Chain c) {
   extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int W = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const bool writer = rank == 0;
   const int tid = threadIdx.x;
   const int D = 3 * c.d + 2;
-  const Smem<T> s = carve<T>(smem, c.ws, c.n, c.d, c.max_shrink);
+  double* ws = c.ws == nullptr ? nullptr
+                               : c.ws + (size_t)rank * (big_bytes(c.n, c.d, sizeof(T)) / 8);
+  const Smem<T> s = carve<T>(smem, ws, c.n, c.d, c.max_stepout, c.max_shrink);
+  Sched& sc = *s.sc;
+  Plan& pl = *s.plan;
 
   const double* z0 = c.table + 4 * D;
   const double* dirs = z0 + D;
@@ -391,101 +773,146 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(Chain c) {
       if (c.mask[i]) s.live[m++] = i;
     }
     s.live[c.n] = m;
+    sc.g0_known = 0;
+    sc.evals = sc.nans = sc.exhausted = sc.boxed = sc.made = sc.rounds = 0.0;
+    sc.e = 0;
   }
+  stamp_init();
   __syncthreads();
   const int m = s.live[c.n];
   for (int i = tid; i < m; i += kThreads) s.yl[i] = c.y[s.live[i]];
 
-  double evals = 0.0, nans = 0.0, exhausted = 0.0, boxed = 0.0;
-  long long e = 0;
+  int par = 0;  // which half of gv this round's values go to
   for (int it = 0; it < c.T; ++it) {
     for (int k = tid; k < D; k += kThreads) s.dir[k] = dirs[(size_t)it * D + k];
-    // the update's shrink draws, read after g(0)'s barriers
     for (int j = tid; j < c.max_shrink; j += kThreads) {
       s.shrink[j] = shrink[(size_t)it * c.max_shrink + j];
     }
-
-    // g(t) = log density at z + t·direction. Thread k owns entry k of z,
-    // dir and the point, so only the point's readers need the barriers.
-    auto g = [&](double t) -> double {
-      __syncthreads();
-      for (int k = tid; k < D; k += kThreads) {
-        s.p[k] = __dadd_rn(s.z[k], __dmul_rn(t, s.dir[k]));
-      }
-      __syncthreads();
-      const double v = log_density<T>(c, s, m);
-      evals += 1.0;
-      nans += v != v ? 1.0 : 0.0;
-      boxed += v != -INFINITY ? 1.0 : 0.0;
-      if (c.trace != nullptr && tid == 0) {
-        c.trace[2 * e] = (double)it;
-        c.trace[2 * e + 1] = v;
-      }
-      ++e;
-      return v;
-    };
-
-    // slice level, stepping out, shrinkage (slice_sampler.py
-    // ::_one_direction_update)
-    const double log_y = __dsub_rn(g(0.0), levels[it]);
-    double lo = __dmul_rn(-c.step, offsets[it]);
-    double hi = __dadd_rn(lo, c.step);
-    for (int i = 0; i < c.max_stepout && g(lo) > log_y; ++i) lo = __dadd_rn(lo, -c.step);
-    for (int i = 0; i < c.max_stepout && g(hi) > log_y; ++i) hi = __dadd_rn(hi, c.step);
-    double t_new = 0.0;
-    bool accepted = false;
-    for (int j = 0; j < c.max_shrink; ++j) {
-      const double u = s.shrink[j];
-      const double x = __dadd_rn(__dmul_rn(u, __dsub_rn(hi, lo)), lo);
-      t_new = lo >= x ? lo : x;  // np.maximum(lo, x)
-      accepted = g(t_new) > log_y;
-      if (accepted) break;
-      if (t_new < 0.0) {
-        lo = t_new;
-      } else {
-        hi = t_new;
-      }
+    if (tid == 0) {
+      s.shrink[c.max_shrink] = levels[it];
+      s.shrink[c.max_shrink + 1] = offsets[it];
     }
-    exhausted += accepted ? 0.0 : 1.0;
-    const double t_fin = accepted ? t_new : 0.0;  // exhausted: stay put
+    __syncthreads();
+    stamp_reset();
+    const double level = s.shrink[c.max_shrink];
+    if (tid == 0) {
+      begin_update(&sc, c, level, s.shrink[c.max_shrink + 1]);
+      plan_round(&sc, &pl, s.shrink, c.max_stepout, c.max_shrink, c.step, W);
+    }
+    __syncthreads();
+    stamp(kStPlan);
+    for (;;) {
+      double v = 0.0;
+      if (rank < pl.count) {
+        const double t = pl.t[rank];
+        for (int k = tid; k < D; k += kThreads) {
+          s.p[k] = __dadd_rn(s.z[k], __dmul_rn(t, s.dir[k]));
+        }
+        __syncthreads();
+        stamp(kStPoint);
+        v = log_density<T>(c, s, m);
+        stamp_count();
+        // every block's copy of this slot's value
+        if (tid < W) *cluster.map_shared_rank(s.gv + par * kMaxWidth + rank, tid) = v;
+      }
+      cluster.sync();
+      stamp(kStExchange);
+      if (tid == 0) {
+        pl.done = decide_round(&sc, &pl, s.gv + par * kMaxWidth, s.gside, s.gshr, c, it,
+                               level, writer);
+        if (!pl.done) plan_round(&sc, &pl, s.shrink, c.max_stepout, c.max_shrink, c.step, W);
+      }
+      par ^= 1;
+      __syncthreads();
+      stamp(kStPlan);
+      if (pl.done) break;
+    }
+    const double t_fin = pl.t_fin;
     for (int k = tid; k < D; k += kThreads) {
       const double zk = __dadd_rn(s.z[k], __dmul_rn(t_fin, s.dir[k]));
       s.z[k] = zk;
-      for (int q = 0; q < c.kept; ++q) {
-        if (min(c.burn_in + c.thin * q, c.T - 1) == it) c.out[(size_t)q * D + k] = zk;
+      if (writer) {
+        for (int q = 0; q < c.kept; ++q) {
+          if (min(c.burn_in + c.thin * q, c.T - 1) == it) c.out[(size_t)q * D + k] = zk;
+        }
       }
     }
   }
-  if (tid == 0) {
+  if (writer && tid == 0) {
     double* counts = c.out + (size_t)c.kept * D;
-    counts[0] = evals;
-    counts[1] = nans;
-    counts[2] = exhausted;
-    counts[3] = boxed;
+    counts[0] = sc.evals;
+    counts[1] = sc.nans;
+    counts[2] = sc.exhausted;
+    counts[3] = sc.boxed;
+    counts[4] = sc.made;
+    counts[5] = sc.rounds;
   }
+  stamp_flush();
+  cluster.sync();  // no block leaves while another may still write to it
+}
+
+template <typename T>
+cudaError_t configure(size_t smem, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int W,
+                      void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(chain_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(chain_kernel<T>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(W, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = W;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return err;
+}
+
+size_t launch_smem(int n, int d, int max_stepout, int max_shrink, int tsize, bool in_smem) {
+  return small_bytes(n, d, max_stepout, max_shrink, tsize) + (in_smem ? big_bytes(n, d, tsize) : 0);
+}
+
+// The widest cluster the card can place for this launch, at most kMaxWidth.
+template <typename T>
+int width(int n, int d, int max_stepout, int max_shrink, bool in_smem) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const size_t smem = launch_smem(n, d, max_stepout, max_shrink, sizeof(T), in_smem);
+  if (configure<T>(smem, cfg, attr, kMaxWidth, nullptr) != cudaSuccess) return -1;
+  int size = 0;
+  if (cudaOccupancyMaxPotentialClusterSize(&size, chain_kernel<T>, &cfg) != cudaSuccess) return -1;
+  return min(size, kMaxWidth);
 }
 
 template <typename T>
 int launch(const void* x, const void* y, const void* mask, const void* table,
            void* out, void* trace, void* ws, int n, int d, int T_, int burn_in,
            int thin, int kept, int max_stepout, int max_shrink, double step,
-           void* stream) {
+           int W, void* stream) {
   Chain c{static_cast<const double*>(x), static_cast<const double*>(y),
           static_cast<const unsigned char*>(mask), static_cast<const double*>(table),
           static_cast<double*>(out), static_cast<double*>(trace),
           static_cast<double*>(ws), n, d, T_, burn_in, thin, kept, max_stepout,
           max_shrink, step};
-  const size_t smem = small_bytes(n, d, max_shrink, sizeof(T))
-                      + (ws == nullptr ? big_bytes(n, d, sizeof(T)) : 0);
+  if (W < 1 || W > kMaxWidth) return (int)cudaErrorInvalidValue;
+  const size_t smem = launch_smem(n, d, max_stepout, max_shrink, sizeof(T), ws == nullptr);
   int dev = 0;
   int optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return (int)err;
   if (smem > (size_t)optin) return (int)cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(chain_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  err = configure<T>(smem, cfg, attr, W, stream);
   if (err != cudaSuccess) return (int)err;
-  chain_kernel<T><<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(c);
+  err = cudaLaunchKernelEx(&cfg, chain_kernel<T>, c);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -496,23 +923,24 @@ extern "C" {
 int slice_chain_f32(const void* x, const void* y, const void* mask, const void* table,
                     void* out, void* trace, void* ws, int n, int d, int T, int burn_in,
                     int thin, int kept, int max_stepout, int max_shrink, double step,
-                    void* stream) {
+                    int width, void* stream) {
   return launch<float>(x, y, mask, table, out, trace, ws, n, d, T, burn_in, thin, kept,
-                       max_stepout, max_shrink, step, stream);
+                       max_stepout, max_shrink, step, width, stream);
 }
 
 int slice_chain_f64(const void* x, const void* y, const void* mask, const void* table,
                     void* out, void* trace, void* ws, int n, int d, int T, int burn_in,
                     int thin, int kept, int max_stepout, int max_shrink, double step,
-                    void* stream) {
+                    int width, void* stream) {
   return launch<double>(x, y, mask, table, out, trace, ws, n, d, T, burn_in, thin, kept,
-                        max_stepout, max_shrink, step, stream);
+                        max_stepout, max_shrink, step, width, stream);
 }
 
-// Dynamic shared memory of a launch: with the factor in shared memory
-// (in_smem = 1) or in a workspace of slice_chain_ws_bytes.
-long long slice_chain_smem_bytes(int n, int d, int max_shrink, int tsize, int in_smem) {
-  return (long long)(small_bytes(n, d, max_shrink, tsize) + (in_smem ? big_bytes(n, d, tsize) : 0));
+// Dynamic shared memory of a block: with the factor in shared memory
+// (in_smem = 1) or in a workspace of slice_chain_ws_bytes a block.
+long long slice_chain_smem_bytes(int n, int d, int max_stepout, int max_shrink, int tsize,
+                                 int in_smem) {
+  return (long long)launch_smem(n, d, max_stepout, max_shrink, tsize, in_smem != 0);
 }
 
 long long slice_chain_ws_bytes(int n, int d, int tsize) {
@@ -526,5 +954,24 @@ long long slice_chain_smem_limit(int device) {
   }
   return optin;
 }
+
+// The cluster width a launch of these sizes takes on the current card: the
+// widest the card can place, at most 16; −1 if the card cannot say.
+int slice_chain_width(int n, int d, int max_stepout, int max_shrink, int tsize, int in_smem) {
+  return tsize == 4 ? width<float>(n, d, max_stepout, max_shrink, in_smem != 0)
+                    : width<double>(n, d, max_stepout, max_shrink, in_smem != 0);
+}
+
+#ifdef SLICE_CHAIN_STAMPS
+// Copy the stage cycles ([kMaxWidth][kStages + 1] u64) to the host and zero them.
+int slice_chain_stamps(void* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
+  if (err == cudaSuccess) {
+    static unsigned long long zero[kMaxWidth][kStages + 1];
+    err = cudaMemcpyToSymbol(g_stamps, zero, sizeof(g_stamps));
+  }
+  return (int)err;
+}
+#endif
 
 }  // extern "C"

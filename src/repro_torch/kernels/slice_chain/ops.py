@@ -2,7 +2,8 @@
 
 ``slice_chain`` packs the box, the start and the chain's draws into one
 float64 table, uploads it once, runs the chain (one launch on the card) and
-reads back the kept samples and the counts in one copy. The gram type
+reads back the kept samples, the counts and how the chain was run in one
+copy. The gram type
 follows the fit backend's name: ``"kernel"`` builds the gram in float32 as
 the Matérn kernels do, ``"torch"`` in float64 as ``matern52_ard`` does.
 """
@@ -34,17 +35,17 @@ def slice_chain(
     draws: ChainDraws,
     cfg: SliceSamplerConfig,
     backend: str,
-) -> Tuple[np.ndarray, np.ndarray]:
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(kept samples (num_kept, 3d+2), counts [evaluations, NaN log
-    densities, exhausted shrinks, evaluations in the box]) as float64
-    numpy."""
+    densities, exhausted shrinks, evaluations in the box], schedule
+    [evaluations made, rounds, cluster width]) as float64 numpy."""
     if backend not in GRAM_TYPE:
         raise ValueError(f"unknown fit backend {backend!r}")
     table = torch.as_tensor(pack_table(bounds, z0, draws)).to(x.device)
-    kept, counts, _ = slice_chain_kernel(
+    kept, counts, _, schedule = slice_chain_kernel(
         x.contiguous(), y.contiguous(), mask.contiguous(), table, cfg,
-        GRAM_TYPE[backend],
+        GRAM_TYPE[backend], schedule=True,
     )
     K, dim = kept.shape
-    host = torch.cat([kept.reshape(-1), counts]).cpu().numpy()
-    return host[: K * dim].reshape(K, dim), host[K * dim:]
+    host = torch.cat([kept.reshape(-1), counts, schedule]).cpu().numpy()
+    return host[: K * dim].reshape(K, dim), host[K * dim: -3], host[-3:]

@@ -21,7 +21,13 @@ version and the refit route against the JAX package, on the CPU.
   decide differently, the port's chain on the reference's target equalling
   the reference's chain;
 * where the float32 gram is indefinite the log density is NaN, and a chain
-  started there stays put, as the JAX chain does.
+  started there stays put, as the JAX chain does;
+* the kernel's speculative schedule — rounds of up to W points evaluated
+  side by side (``csrc/slice_chain.cu``), emulated in numpy with its
+  rounding — is the sequential chain: ``run_chain``'s kept samples, counts
+  and trace bit for bit, for W = 1–16, on the port's log density and on
+  synthetic targets that step out to ``max_stepout`` and run every shrink
+  out; and it follows the JAX package's chain to 1e-9.
 """
 
 from fractions import Fraction
@@ -293,3 +299,237 @@ def test_indefinite_gram_gives_nan_and_the_chain_stays_put():
     got = Tfit.mcmc_gphps(t(x), t(y), t(mask, torch.bool), bounds, z0, key, cfg, "kernel")
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, np.tile(z0, (cfg.num_kept, 1)))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's speculative schedule (csrc/slice_chain.cu), emulated in numpy.
+
+DEPTH = 2  # stepping-out points a round takes from each open side (kDepth)
+
+
+def _plan_round(width, need_g0, sides, shrink_state, point, u, cfg):
+    """A round's slots, as plan_round makes them: g(0) if unknown; the next
+    DEPTH points of each open side; then the shrink proposals of each
+    bracket those points can end on (or of the known bracket), one a bracket
+    in turn. Slots are (kind, key, t): kind "g0", "L", "R" (key: the point's
+    index) or "S" (key: the bracket's stops (a, b))."""
+    slots = [("g0", 0, 0.0)] if need_g0 else []
+    stops = []
+    for s, (open_, k) in enumerate(sides):
+        if not open_:
+            stops.append([k])
+            continue
+        a = min(DEPTH, cfg.max_stepout - k, width - len(slots))
+        slots += [("LR"[s], k + i, point(s, k + i)) for i in range(a)]
+        stops.append([k + i for i in range(a)])
+    if not (stops[0] and stops[1]):
+        return slots
+    if shrink_state is not None:
+        brackets = [[(stops[0][0], stops[1][0]), shrink_state]]
+    else:
+        brackets = [[(a, b), (point(0, a), point(1, b), 0)] for a in stops[0] for b in stops[1]]
+    while len(slots) < width:
+        added = False
+        for br in brackets:
+            (lo, hi, j) = br[1]
+            if len(slots) >= width or j >= cfg.max_shrink:
+                continue
+            x = np.add(np.multiply(u[j], np.subtract(hi, lo)), lo)  # unfused, as __dadd_rn
+            t_j = lo if lo >= x else x
+            slots.append(("S", br[0], t_j))
+            br[1] = (t_j, hi, j + 1) if t_j < 0.0 else (lo, t_j, j + 1)
+            added = True
+        if not added:
+            break
+    return slots
+
+
+def _speculative_chain(log_prob, z0, draws, cfg, width):
+    """The chain as the kernel runs it: each round evaluates its slots (in
+    the kernel, side by side), then reads the values in the sequential
+    chain's order — stepping out stops at a side's first g ≤ log_y, the
+    shrink takes the first g > log_y of the bracket the sides stopped on
+    (or runs out), every other value is thrown away. g(0) is carried from
+    the point the last update accepted. Returns (kept, counts, trace, points
+    evaluated, rounds)."""
+    step = cfg.step_size
+    z = np.asarray(z0, dtype=np.float64)
+    counts = np.zeros(4)
+    trace = []
+    made = rounds = 0
+    buf = np.zeros((cfg.num_samples, z.shape[0]))
+    g0 = None
+    for it in range(cfg.num_samples):
+        direction = draws.directions[it]
+        lo0 = np.multiply(-step, draws.offsets[it])
+        seqs = ([lo0], [np.add(lo0, step)])
+
+        def point(s, k):
+            while len(seqs[s]) <= k:
+                seqs[s].append(np.add(seqs[s][-1], step if s else -step))
+            return seqs[s][k]
+
+        sides = [[cfg.max_stepout > 0, 0], [cfg.max_stepout > 0, 0]]
+        logged = ([], [], [])
+        shrink_state = None
+        log_y = None if g0 is None else np.subtract(g0, draws.levels[it])
+        t_fin = None
+        while True:
+            slots = _plan_round(width, log_y is None, sides, shrink_state, point,
+                                draws.shrink[it], cfg)
+            values = [log_prob(z + t_j * direction) for _, _, t_j in slots]
+            made += len(slots)
+            rounds += 1
+            known = shrink_state is not None
+            shrinks = []
+            for (kind, key, t_j), v in zip(slots, values):
+                if kind == "g0":
+                    g0, log_y = v, np.subtract(v, draws.levels[it])
+                elif kind in "LR":
+                    side = sides["LR".index(kind)]
+                    if not side[0]:
+                        continue  # past this side's stop
+                    logged["LR".index(kind)].append(v)
+                    if v > log_y:
+                        side[1] += 1
+                        side[0] = side[1] < cfg.max_stepout
+                    else:
+                        side[0] = False
+                else:
+                    shrinks.append((key, t_j, v))
+            if sides[0][0] or sides[1][0]:
+                continue
+            stopped = (sides[0][1], sides[1][1])
+            if not known:
+                shrink_state = (point(0, stopped[0]), point(1, stopped[1]), 0)
+            lo, hi, j = shrink_state
+            for key, t_j, v in shrinks:
+                if key != stopped:
+                    continue  # assumed another bracket
+                logged[2].append(v)
+                j += 1
+                if v > log_y:
+                    t_fin = t_j
+                    break
+                lo, hi = (t_j, hi) if t_j < 0.0 else (lo, t_j)
+            shrink_state = (lo, hi, j)
+            if t_fin is not None or j >= cfg.max_shrink:
+                break
+        for v in (g0, *logged[0], *logged[1], *logged[2]):
+            trace.append((it, v))
+            counts += (1, v != v, 0, v != -np.inf)
+        if t_fin is None:
+            counts[2] += 1
+            t_fin = 0.0
+        else:
+            g0 = logged[2][-1]
+        z = z + t_fin * direction
+        buf[it] = z
+    return buf[keep_rows(cfg)], counts, trace, made, rounds
+
+
+def _flat_target(dim, nan_center=None):
+    """−inf outside [−6, 6]^dim; inside a slow quadratic, so stepping out
+    runs to max_stepout, with NaN on thin stripes (Σp mod 0.37 < 0.02) and,
+    with ``nan_center``, NaN in the unit ball around it."""
+    def log_prob(p):
+        if np.any(np.abs(p) > 6.0):
+            return -np.inf
+        if nan_center is not None and np.sum((p - nan_center) ** 2) < 1.0:
+            return np.nan
+        if np.mod(np.sum(p), 0.37) < 0.02:
+            return np.nan
+        return -1e-3 * float(np.sum(p * p))
+    return log_prob
+
+
+def _schedule_target(name):
+    """(log_prob, z0, draws, cfg) of a named case."""
+    if name.startswith("host"):
+        d = 2
+        x, y, mask = data(8, 6, d, seed=21)
+        cfg = TSC(**FAST)
+        z0 = start(d)
+        b = TP.default_bounds(d)
+        gram = torch.float64 if name == "host-f64" else torch.float32
+        log_prob = host_log_density(t(x), t(y), t(mask, torch.bool),
+                                    (b.lower, b.upper, b.center, np.maximum(b.width / 4.0, 1e-6)),
+                                    gram)
+        return log_prob, z0, chain_draws(prng.PRNGKey(22), z0.shape[0], cfg), cfg
+    dim = 4
+    cfg = TSC(num_samples=40, burn_in=20, thin=4)
+    z0 = np.full(dim, 0.5)
+    target = _flat_target(dim, z0 if name == "stuck" else None)
+    return target, z0, chain_draws(prng.PRNGKey(23), dim, cfg), cfg
+
+
+@pytest.mark.parametrize("width", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("name", ["host-f64", "host-f32", "flat", "stuck"])
+def test_speculative_schedule_is_the_sequential_chain(name, width):
+    """The kernel's rounds give run_chain's kept samples, four counts and
+    logical trace bit for bit, at every width: on the port's log density
+    (float64 and float32 grams), on a flat target whose stepping out runs
+    to max_stepout with NaN stripes, and on a chain that starts on NaN and
+    runs every shrink out (ROADMAP C10's stuck chain). At W = 1 the kernel
+    evaluates the sequential chain's points alone, g(0) once."""
+    log_prob, z0, draws, cfg = _schedule_target(name)
+    want_trace = []
+    want, want_counts = run_chain(log_prob, z0, draws, cfg, want_trace)
+    got, counts, trace, made, rounds = _speculative_chain(log_prob, z0, draws, cfg, width)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(counts, want_counts)
+    np.testing.assert_array_equal(np.asarray(trace), np.asarray(want_trace))
+    evaluations = int(counts[0])
+    assert rounds <= made <= rounds * width
+    if width == 1:
+        assert made == rounds == evaluations - (cfg.num_samples - 1)
+    else:
+        assert rounds < evaluations - (cfg.num_samples - 1)
+    steps = np.bincount([u for u, _ in want_trace], minlength=cfg.num_samples)
+    if name == "flat":  # some update stepped out to max_stepout on a side
+        assert steps.max() >= 1 + cfg.max_stepout + 1
+        assert counts[1] > 0 and counts[2] == 0
+    if name == "stuck":  # every shrink ran out; the chain never moved
+        assert counts[2] == cfg.num_samples
+        np.testing.assert_array_equal(got, np.tile(z0, (cfg.num_kept, 1)))
+        assert np.all(steps == 1 + 2 + cfg.max_shrink)
+
+
+def test_speculative_schedule_follows_jax_xla():
+    """The kernel's schedule on the port's float64 target, on the JAX
+    chain's key, keeps the JAX package's samples (``"xla"``) to 1e-9, as the
+    port's sequential chain does."""
+    d, bucket, n_live = 6, 8, 6
+    x, y, mask = data(bucket, n_live, d, seed=bucket + d)
+    z0 = start(d)
+    key = prng.split(prng.PRNGKey(bucket * 10 + d))[1]
+    want = _jax_chain(x, y, mask, d, z0, key, FAST, "xla")
+    cfg = TSC(**FAST)
+    b = TP.default_bounds(d)
+    log_prob = host_log_density(t(x), t(y), t(mask, torch.bool),
+                                (b.lower, b.upper, b.center, np.maximum(b.width / 4.0, 1e-6)),
+                                torch.float64)
+    got, counts, _, made, rounds = _speculative_chain(
+        log_prob, z0, chain_draws(key, z0.shape[0], cfg), cfg, 16)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+    assert not np.array_equal(got[-1], z0)
+    assert rounds < counts[0] - (cfg.num_samples - 1) < made
+
+
+def test_wrapper_schedule_on_cpu_is_one_point_a_round():
+    """With ``schedule=True`` the wrapper also says how the chain ran: the
+    plain version on CPU tensors evaluates one point a round, each of them
+    the chain's own, so [points evaluated, rounds, width] is [evaluations,
+    evaluations, 1] — and the first three results are those without it."""
+    d = 2
+    x, y, mask = data(8, 6, d, seed=2)
+    cfg = TSC(**TINY)
+    z0 = start(d)
+    table = t(pack_table(TP.default_bounds(d), z0,
+                         chain_draws(prng.PRNGKey(5), z0.shape[0], cfg)))
+    args = (t(x), t(y), t(mask, torch.bool), table, cfg, torch.float64)
+    kept, counts, rows, schedule = slice_chain_kernel(*args, trace=True, schedule=True)
+    want, want_counts, want_rows = slice_chain_kernel(*args, trace=True)
+    assert torch.equal(kept, want) and torch.equal(counts, want_counts)
+    assert torch.equal(rows, want_rows)
+    assert schedule.tolist() == [float(counts[0]), float(counts[0]), 1.0]
