@@ -17,7 +17,13 @@ of the JAX package. Phases:
    decision's re-rank of 8 points): max error against the stated tolerance,
    kernel and plain
    times (CUDA events, median), and the card's lower bound for the same
-   work; and ``slice_chain`` — a whole slice-sampling chain at the paper's
+   work, beside the launch floor (an empty kernel's time) where the kernel
+   is within twice it; ``matern52_cross`` (a pending set's cross rows in
+   one launch) also bit for bit against one launch a row and
+   ``matern52_operand`` (the factorize operand) against the torch
+   composition around ``matern52_gram``, and the engine's pending fold
+   through one rows launch against the sequential fold, bit for bit, at
+   buckets 8–64; and ``slice_chain`` — a whole slice-sampling chain at the paper's
    configuration in one launch — against its plain version (the host
    chain) on the same draw table, at each row bucket 8–256 with both gram
    types and once from a start where the float32 gram is indefinite (every
@@ -34,10 +40,15 @@ of the JAX package. Phases:
    kernels on; each refit is one ``slice_chain`` launch; the slowest GP
    decision is broken down (rows, row bucket, its chain's evaluations, NaN
    factors, exhausted shrinks and rounds, its spans);
-5. multi-metric and cost-aware paths — three 24-trial jobs at the same
-   engine configuration: constrained (objective + latency constraint),
-   Pareto (two objectives + the constraint) and cost-aware EI per unit
-   cost with a ``max_cost`` that stops the job early;
+5. multi-metric, cost-aware and kriging-believer paths — three 24-trial
+   jobs at the same engine configuration: constrained (objective + latency
+   constraint), Pareto (two objectives + the constraint) and cost-aware EI
+   per unit cost with a ``max_cost`` that stops the job early; then a
+   16-trial single-metric job whose pending trials are fantasized at the
+   posterior mean (kriging believer: ``matern52_gram`` predicts each);
+   every GP decision of phases 4–5 launches ``matern52_cross`` once for its
+   pending set (and once a row for interim picks) and
+   ``matern52_operand`` once a factorization;
 6. serve path — the LM workload's serving path on recurrentgemma-9b at its
    full published widths and depth (38 layers, 7.48e9 parameters, seeded
    random weights made on the card): first ``flash_attention`` and
@@ -110,6 +121,9 @@ REPLACES = {
     "acq_score_multi": "src/repro/kernels/acq_score/kernel.py:254",
     "matern52_gram": "src/repro/kernels/matern52/kernel.py:148",
     "matern52_cross": "src/repro/kernels/matern52/kernel.py:117",
+    # the factorize step's route of matern52_gram_pallas
+    # (src/repro/core/gp/gp.py:76, its masked gram)
+    "matern52_operand": "src/repro/kernels/matern52/kernel.py:148",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:102",
     "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:55",
     "mamba_scan": "src/repro/kernels/mamba_scan/kernel.py:63",
@@ -123,6 +137,7 @@ SOURCES = {
     "acq_score_multi": "src/repro_torch/kernels/csrc/acq_score_multi.cu",
     "matern52_gram": "src/repro_torch/kernels/csrc/matern52.cu",
     "matern52_cross": "src/repro_torch/kernels/csrc/matern52.cu",
+    "matern52_operand": "src/repro_torch/kernels/csrc/matern52.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
@@ -131,7 +146,7 @@ SOURCES = {
 }
 # The path whose launches the JSON line reports for each kernel.
 PATH_OF = {"acq_score": "main", "acq_score_multi": "multi",
-           "matern52_gram": "main", "matern52_cross": "main",
+           "matern52_gram": "kb", "matern52_cross": "main", "matern52_operand": "main",
            "flash_attention": "serve", "rglru_scan": "serve",
            "mamba_scan": "mamba", "decode_attention": "decode_check",
            "slice_chain": "main"}
@@ -153,6 +168,7 @@ PATH_OF = {"acq_score": "main", "acq_score_multi": "multi",
 TOL = {("acq_score", "f64"): 1e-9, ("acq_score", "f32"): 2e-2,
        ("acq_score_multi", "f64"): 1e-9, ("acq_score_multi", "f32"): 2e-2,
        ("matern52_gram", "f32"): 2e-5, ("matern52_cross", "f32"): 2e-5,
+       ("matern52_operand", "f32"): 2e-5,
        ("flash_attention", "f32"): 3e-5, ("rglru_scan", "f32"): 1e-4,
        ("decode_attention", "f32"): 3e-5, ("mamba_scan", "f32"): 1e-4}
 # Held per element instead, as |Δ| ≤ rel·|plain| + abs: bf16 attention.
@@ -886,14 +902,18 @@ def main() -> None:
         acq_score_multi_plain,
         acq_score_plain,
     )
+    from repro_torch.core.gp.kernels import gram
     from repro_torch.kernels.matern52.kernel import (
+        empty_kernel,
         matern52_cross_kernel,
         matern52_gram_kernel,
+        matern52_operand_kernel,
     )
     from repro_torch.kernels.matern52.ops import packed_params
     from repro_torch.kernels.matern52.plain import (
         matern52_cross_plain,
         matern52_gram_plain,
+        matern52_operand_plain,
     )
 
     dev = torch.device("cuda")
@@ -957,6 +977,11 @@ def main() -> None:
     results = {}  # kernel name -> numbers at the main path's shape
     # -------------------------------------------------------------- 2. kernels
     t_phase = time.perf_counter()
+    # The launch floor: one empty kernel (matern52.cu), timed as every
+    # kernel is. A kernel within twice it is bound by its launch, whatever
+    # its bytes and operations bound says.
+    floor_ms = time_ms(torch, empty_kernel)
+    print(f"launch_floor_ms {floor_ms:.5f} (an empty kernel, <<<1, 1>>>)", flush=True)
 
     def check(kname, dt, label, kfn, pfn, nbytes, flops, main_shape, tol=None,
               library=None):
@@ -993,11 +1018,13 @@ def main() -> None:
         rate = (f"{nbytes / k_ms / 1e6:.1f} GB/s" if b_by == "bytes"
                 else f"{sum(flops.values()) / k_ms / 1e9:.2f} TFLOP/s, "
                      f"{nbytes / k_ms / 1e6:.1f} GB/s")
+        floor_text = f" launch_floor_ms {floor_ms:.5f}" if k_ms <= 2 * floor_ms else ""
         print(f"{kname} {dt} {label}: max_abs_err {err:.3e} ({tol_text}) "
               f"kernel_ms {k_ms:.5f} ({rate}, {b_ms / k_ms:.1%} of bound: bytes "
               f"{t_bytes / k_ms:.1%}, operations {t_ops / k_ms:.1%}) "
               f"plain_ms {p_ms:.5f} bound_ms {b_ms:.6f} "
-              f"({b_by}) call_ms {call_ms:.5f} {'ok' if ok else 'FAIL'}", flush=True)
+              f"({b_by}){floor_text} call_ms {call_ms:.5f} {'ok' if ok else 'FAIL'}",
+              flush=True)
         if not ok:
             fail(f"{kname} {dt} {label} disagrees with its plain version")
         if b_ms > k_ms:
@@ -1181,24 +1208,131 @@ def main() -> None:
                 "matern52_gram", "f32", f"S={s_gram} n=m={n} d={d}",
                 lambda: matern52_gram_kernel(x1, x1, *pp),
                 lambda: matern52_gram_plain(x1, x1, *pp),
-                nbytes, {"f32": flops}, main_shape=(n == 64 and s_gram == 1),
+                nbytes, {"f32": flops}, main_shape=False,
             )
-    S = 10
+    # ... and at its path's shapes: a kriging-believer prediction of one
+    # fantasy, K(X, x) for S = 10 samples over the buckets the 16-trial job
+    # of phase 5 reaches (the JSON line's numbers: its largest)
+    kb_base = P.default_params(d).pack().numpy()
+    kb_params = P.GPHyperParams.unpack(torch.as_tensor(np.stack(
+        [kb_base + 0.1 * rng.standard_normal(3 * d + 2) for _ in range(10)])).to(dev), d)
+    pp, _ = packed_params(kb_params, True, torch.float32)
+    for n in (8, 16):
+        x1 = torch.as_tensor(rng.random((n, d)), dtype=torch.float32).to(dev)
+        x2 = torch.as_tensor(rng.random((1, d)), dtype=torch.float32).to(dev)
+        nbytes = 4 * ((n + 1) * d + 4 * 10 * d + 10 + 10 * n)
+        flops = 10 * (n * (3 * d + 10) + (n + 1) * d * 12)
+        check(
+            "matern52_gram", "f32", f"S=10 n={n} m=1 d={d} (a prediction)",
+            lambda: matern52_gram_kernel(x1, x2, *pp),
+            lambda: matern52_gram_plain(x1, x2, *pp),
+            nbytes, {"f32": flops}, main_shape=(n == 16),
+        )
+    # matern52_cross: the cross rows of the constant liar's 3 pending points
+    # in one launch, from the engine's float64 rows and GPHP table (S = 10),
+    # at the row buckets the jobs reach with their live rows (7 of 8 grows
+    # to 16 on the way) and at 1024. Held against its plain version (2e-5)
+    # and, bit for bit, against one launch a row as the sequential appends
+    # make them (row r against the bucket after rows 0…r−1), on the columns
+    # each append reads. Work: the live rows' and the pending rows' columns.
+    S, R = 10, 3
     base = P.default_params(d).pack().numpy()
     packed = np.stack([base + 0.1 * rng.standard_normal(3 * d + 2) for _ in range(S)])
-    params = P.GPHyperParams.unpack(torch.as_tensor(packed).to(dev), d)
-    pp, _ = packed_params(params, True, torch.float32)
-    for n in (64, 1024):
-        xt = torch.as_tensor(rng.random((n, d)), dtype=torch.float32).to(dev)
-        xn = torch.as_tensor(rng.random(d), dtype=torch.float32).to(dev)
-        nbytes = 4 * (d + n * d + 4 * S * d + S + S * n)
-        flops = S * (n * (3 * d + 10) + (n + 1) * d * 12)
+    table = torch.as_tensor(packed).to(dev)
+    params = P.GPHyperParams.unpack(table, d)
+    fold_cases = ((5, 8), (7, 8), (13, 16), (29, 32), (60, 64))
+    for live, n in fold_cases + ((1021, 1024),):
+        x_np = np.zeros((n, d))
+        x_np[:live] = rng.random((live, d))
+        xt = torch.as_tensor(x_np).to(dev)
+        xn = torch.as_tensor(rng.random((R, d))).to(dev)
+        m = max(n, bucket_size(live + R))
+        rows = matern52_cross_kernel(xn, xt, table, live, m)
+        seq_err, xs, seq = 0.0, xt, []
+        for r in range(R):
+            idx = live + r
+            if idx >= xs.shape[0]:
+                xs = torch.nn.functional.pad(xs, (0, 0, 0, bucket_size(idx + 1) - xs.shape[0]))
+            seq.append((xn[r:r + 1], xs, idx))
+            one = matern52_cross_kernel(xn[r:r + 1], xs, table, idx, xs.shape[0])
+            seq_err = max(seq_err, float((one[:, 0, :idx] - rows[:, r, :idx]).abs().max()))
+            xs = xs.clone()
+            xs[idx] = xn[r]
+        cols = live + R
+        nbytes = 8 * (R * d + live * d + S * (3 * d + 2) + S * R * m)
+        flops = S * (R * cols * (3 * d + 10) + (cols + R) * d * 12)
+        label = f"S={S} R={R} m={m} live={live} d={d}"
+        t_rows = time_ms(torch, lambda: [matern52_cross_kernel(a, b, table, i, b.shape[0])
+                                        for a, b, i in seq])
+        print(f"matern52_cross {label}: rows against {R} launches of one row max |Δ| "
+              f"{seq_err:.3e} (must be 0); {R} one-row launches {t_rows:.5f} ms", flush=True)
+        if seq_err != 0.0:
+            fail(f"matern52_cross {label}: the rows launch differs from one launch a row")
         check(
-            "matern52_cross", "f32", f"S={S} n={n} d={d}",
-            lambda: matern52_cross_kernel(xn, xt, *pp),
-            lambda: matern52_cross_plain(xn, xt, *pp),
-            nbytes, {"f32": flops}, main_shape=(n == 64),
+            "matern52_cross", "f32", label,
+            lambda: matern52_cross_kernel(xn, xt, table, live, m),
+            lambda: matern52_cross_plain(xn, xt, table, live, m),
+            nbytes, {"f32": flops}, main_shape=(live, n) == (60, 64),
         )
+
+    # matern52_operand: the factorize step's operand in one launch, against
+    # its plain version (2e-5) and, bit for bit, against the torch
+    # composition it replaces (``gram(backend="kernel")`` — torch-packed
+    # parameters, float32 casts, the gram launch, the cast back — and the
+    # mask, eye and noise ops of ``masked_operand``), at the buckets the jobs
+    # factorize and at 1024. Work: the gram in float32 (live block), the
+    # epilogue in float64 (5 operations an entry).
+    jitter = G._JITTER
+    for live, n in ((5, 8), (13, 16), (29, 32), (60, 64), (1021, 1024)):
+        x_np = np.zeros((n, d))
+        x_np[:live] = rng.random((live, d))
+        xt = torch.as_tensor(x_np).to(dev)
+        mt = torch.as_tensor(np.arange(n) < live).to(dev)
+
+        def composition():
+            k = gram(xt, xt, params, backend="kernel")
+            return G.masked_operand(k, mt, torch.exp(2.0 * params.log_noise) + jitter)
+
+        got = matern52_operand_kernel(xt, table, mt, jitter)
+        comp_err = float((got - composition()).abs().max())
+        comp_ms = time_ms(torch, composition, hide_host=False)
+        label = f"S={S} n={n} live={live} d={d}"
+        print(f"matern52_operand {label}: against the torch composition max |Δ| "
+              f"{comp_err:.3e} (must be 0); composition call_ms {comp_ms:.5f}", flush=True)
+        if comp_err != 0.0:
+            fail(f"matern52_operand {label}: differs from the torch composition")
+        nbytes = 8 * (n * d + S * (3 * d + 2) + S * n * n) + n
+        flops = {"f32": S * (live * live * (3 * d + 10) + 2 * live * d * 12),
+                 "f64": S * n * n * 5}
+        check(
+            "matern52_operand", "f32", label,
+            lambda: matern52_operand_kernel(xt, table, mt, jitter),
+            lambda: matern52_operand_plain(xt, table, mt, jitter),
+            nbytes, flops, main_shape=(live, n) == (60, 64),
+        )
+
+    # The engine's pending fold (constant liar, 3 pending, fit_backend
+    # "kernel"): the set's rows from one launch, one rank-1 append a row,
+    # against three appends that each launch their own row — the factor,
+    # L⁻¹, rows, mask and α bit for bit, at every bucket 8–64.
+    fold_engine = BOSuggester(space, BOConfig(fit_backend="kernel", pending_strategy="liar"),
+                              seed=0, device=dev)
+    for live, n in fold_cases:
+        post, x_live = posterior(n, d, S, live)
+        y0 = list(rng.standard_normal(live))
+        xb = torch.as_tensor(rng.random((R, d))).to(dev)
+        rows = fold_engine._pending_rows(post, xb, live)
+        a, ya, b, yb = post, y0, post, y0
+        for r in range(R):
+            a, ya = fold_engine._fantasy_append(a, ya, xb[r], rows[..., r, :])
+            b, yb = fold_engine._fantasy_append(b, yb, xb[r])
+        errs = {key: float((getattr(a, key).double() - getattr(b, key).double()).abs().max())
+                for key in ("chol", "chol_inv", "x_train", "mask", "alpha")}
+        print(f"pending fold n={n} live={live} +{R} (bucket {a.x_train.shape[0]}): rows "
+              f"launch against one launch a row, max |Δ| " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in errs.items()) + " (must be 0)", flush=True)
+        if any(v != 0.0 for v in errs.values()):
+            fail(f"pending fold n={n} live={live}: differs from the sequential fold")
 
     # slice_chain: one whole chain at the paper's configuration (300
     # updates, up to 8 step-outs a side and 32 shrinks each) against its
@@ -1402,11 +1536,16 @@ def main() -> None:
 
     def drive(label, cfg, trials, parallel, scorer, fn=objective, **job):
         """One job with spans on and launch counts set to 0 just before it;
-        checks the trials, the launches of ``scorer``, both Matérn kernels
-        and ``slice_chain`` (once per refit), and that the row buckets it
-        scored were held against the plain version in phase 2; prints the
-        decision latency and the slowest GP decision's breakdown."""
-        must_launch = (scorer, "matern52_gram", "matern52_cross", "slice_chain")
+        checks the trials, the launches of ``scorer``, ``slice_chain`` (once
+        per refit), ``matern52_operand`` (once per factorization),
+        ``matern52_cross`` (once per GP decision with pending trials, once
+        per interim pick) and, for the kriging believer, ``matern52_gram``
+        (once per fantasy), and that the row buckets it scored were held
+        against the plain version in phase 2; prints the decision latency
+        and the slowest GP decision's breakdown."""
+        kb = cfg.pending_strategy == "kb"
+        must_launch = (scorer, "matern52_operand", "matern52_cross", "slice_chain") + (
+            ("matern52_gram",) if kb else ())
         telemetry.get().reset()
         telemetry.set_enabled(True)
         K.reset_launch_counts()
@@ -1448,6 +1587,10 @@ def main() -> None:
         if launches["slice_chain"] != refits or len(chains) != refits:
             fail(f"{label}: {launches['slice_chain']} slice_chain launches and "
                  f"{len(chains)} chains for {refits} refits")
+        factorized = len(spans.get("suggest.factorize", []))
+        if launches["matern52_operand"] != factorized:
+            fail(f"{label}: {launches['matern52_operand']} matern52_operand launches "
+                 f"for {factorized} factorizations")
 
         def med(span_name):
             v = spans.get(span_name)
@@ -1466,6 +1609,25 @@ def main() -> None:
         gp_ids = {decision_of(ev) for ev in by_id.values()
                   if ev["name"] == "suggest.posterior"} - {None}
         dec = sorted(by_id[i]["dur"] * 1e3 for i in gp_ids)
+        # Cross rows: one launch per GP decision with pending trials (the
+        # whole set), one per interim pick of a batch; a launch a pending
+        # trial before the rows entry. The kriging believer predicts each
+        # fantasy: one matern52_gram launch each.
+        attrs = [by_id[i]["attrs"] for i in gp_ids]
+        picks = sum(a["k"] - 1 for a in attrs)
+        with_pending = sum(a["pending"] > 0 for a in attrs)
+        fantasies = sum(a["pending"] for a in attrs) + picks
+        want_cross = with_pending + picks
+        print(f"  matern52_cross: {launches['matern52_cross']} launches for {len(attrs)} GP "
+              f"decisions ({with_pending} with pending trials, {fantasies} fantasies, "
+              f"{picks} interim picks): expected {want_cross}, one a pending trial would "
+              f"be {fantasies}", flush=True)
+        if launches["matern52_cross"] != want_cross:
+            fail(f"{label}: {launches['matern52_cross']} matern52_cross launches, not "
+                 f"{want_cross}")
+        if launches["matern52_gram"] != (fantasies if kb else 0):
+            fail(f"{label}: {launches['matern52_gram']} matern52_gram launches, not "
+                 f"{fantasies if kb else 0}")
         print(f"{label}: {len(done)} trials in {wall:.1f} s, {decisions} GP "
               f"decisions, best objective {res.best_objective:.6f}", flush=True)
         if not dec or len(dec) != decisions:
@@ -1581,7 +1743,15 @@ def main() -> None:
     if spent > max_cost + 4 * max_trial_cost:
         fail("(c) cost-aware: spend beyond max_cost plus the in-flight trials")
     multi_launches = {k: multi_launches[k] + launches[k] for k in launches}
-    phase_done("5 multi-metric and cost-aware paths", t_phase)
+
+    # (d) the kriging believer: each pending trial is fantasized at the
+    # posterior mean, so each fantasy predicts through matern52_gram
+    _, res, kb_launches = drive("(d) kriging believer",
+                                BOConfig(**{**paper, "pending_strategy": "kb"}), 16, 4,
+                                "acq_score")
+    if not math.isfinite(res.best_objective):
+        fail("(d) kriging believer: best objective not finite")
+    phase_done("5 multi-metric, cost-aware and kriging-believer paths", t_phase)
 
     # 6. the LM serving path
     t_phase = time.perf_counter()
@@ -1593,7 +1763,7 @@ def main() -> None:
     mamba_launches = mamba_phase(torch, K, check, dev)
     phase_done("7 mamba path", t_phase)
 
-    path_launches = {"main": main_launches, "multi": multi_launches,
+    path_launches = {"main": main_launches, "multi": multi_launches, "kb": kb_launches,
                      "serve": serve_launches, "decode_check": decode_launches,
                      "mamba": mamba_launches}
     line = {"kernels": []}

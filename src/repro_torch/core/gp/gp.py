@@ -83,19 +83,33 @@ def cho_solve(chol: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     )[..., 0]
 
 
+def masked_operand(
+    k: torch.Tensor, mask: torch.Tensor, noise: torch.Tensor
+) -> torch.Tensor:
+    """K̃ = k·mm + I·(1 − mm) + I·mm·noise of a gram k (..., n, n): masked
+    rows/cols become identity, the live diagonal gets ``noise`` (...,)."""
+    n = k.shape[-1]
+    mm = (mask[:, None] & mask[None, :]).to(k.dtype)
+    eye = torch.eye(n, dtype=k.dtype, device=k.device)
+    return k * mm + eye * (1.0 - mm) + eye * mm * noise[..., None, None]
+
+
 def _masked_kernel(
     x: torch.Tensor,
     params: GPHyperParams,
     mask: torch.Tensor,
     backend: str,
 ) -> torch.Tensor:
-    n = x.shape[0]
+    """The factorize operand K̃ + σ²I (``masked_operand``). The kernel
+    backend builds it in one ``matern52_operand`` launch from the rows, the
+    GPHP table and the mask, bit for bit the composition around
+    ``gram(backend="kernel")``."""
+    if backend == "kernel":
+        from repro_torch.kernels.matern52.ops import matern52_operand
+
+        return matern52_operand(x, params, mask, _JITTER)
     k = gram(x, x, params, backend=backend)
-    mm = (mask[:, None] & mask[None, :]).to(k.dtype)
-    eye = torch.eye(n, dtype=k.dtype, device=k.device)
-    noise = (torch.exp(2.0 * params.log_noise) + _JITTER)[..., None, None]
-    # masked rows/cols become identity; live diagonal gets the noise.
-    return k * mm + eye * (1.0 - mm) + eye * mm * noise
+    return masked_operand(k, mask, torch.exp(2.0 * params.log_noise) + _JITTER)
 
 
 def _default_mask(x: torch.Tensor, mask):

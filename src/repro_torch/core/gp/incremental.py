@@ -15,12 +15,17 @@ an observation arrives, so ``refresh_alpha`` recomputes it from the cached
 factor (two triangular solves, also O(n²)).
 
 Invariant required by ``posterior_append``: live rows form a prefix of the
-padded arrays (the append index is ``sum(mask)``). ``ObservationStore``
-guarantees this. The S GPHP samples are a leading batch axis throughout.
+padded arrays, and the caller passes the append index ``idx`` — the live
+count, which it knows on the host (``sum(mask)``, read back from the card,
+would cost a synchronization each append). ``ObservationStore``
+guarantees the prefix. The S GPHP samples are a leading batch axis
+throughout.
 
-The cross-covariance row k(x_new, X) dispatches through
-``repro_torch.core.gp.kernels.gram_cross`` — on the kernel backend that is
-the ``matern52_cross`` row kernel, one launch for all S samples.
+The cross-covariance rows k(x_new, X) dispatch through
+``repro_torch.core.gp.kernels.gram_rows`` — on the kernel backend that is
+the ``matern52_cross`` kernel, one launch for all S samples and for every
+row of a pending set: a caller that folds several rows computes them once
+and hands each append its row as ``cross``.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.gp.gp import _JITTER, GPPosterior, cho_solve, cholesky
-from repro_torch.core.gp.kernels import gram, gram_cross
+from repro_torch.core.gp.kernels import gram_rows
 
 __all__ = [
     "cholesky_append_row",
@@ -97,13 +102,20 @@ def posterior_append(
     post: GPPosterior,
     x_new: torch.Tensor,  # (d,) encoded new observation
     *,
+    idx: int,  # the append index: the live count, sum(post.mask)
+    cross: torch.Tensor | None = None,  # (..., n) its cross row, if computed
     backend: str = "torch",
 ) -> GPPosterior:
-    """Fold one observation's input into the factorization. ``alpha`` is left
-    stale — call ``refresh_alpha`` with the new standardized targets."""
-    idx = int(post.mask.sum())
+    """Fold one observation's input into the factorization. ``cross`` is the
+    row of ``gram_rows`` for this append on the bucket's n columns (columns
+    from ``idx`` on are ignored); without it, it is computed here. ``alpha``
+    is left stale — call ``refresh_alpha`` with the new standardized
+    targets."""
     params = post.params
-    cross = gram_cross(x_new, post.x_train, params, backend=backend)
+    n = post.x_train.shape[0]
+    if cross is None:
+        cross = gram_rows(x_new[None], post.x_train, idx, n, params,
+                          backend=backend)[..., 0, :]
     k_row = torch.where(post.mask, cross, torch.zeros_like(cross))
     noise = torch.exp(2.0 * params.log_noise) + _JITTER
     k_diag = torch.exp(2.0 * params.log_amplitude) + noise
@@ -190,23 +202,22 @@ def posterior_append_block(
     post: GPPosterior,
     x_new: torch.Tensor,  # (k, d) encoded new observations
     *,
+    idx: int,  # index of the first appended row: the live count
     backend: str = "torch",
 ) -> GPPosterior:
     """Fold k observations' inputs into the factorization with one blocked
     solve per GPHP sample (the rank-k analogue of ``posterior_append``).
+    Its cross rows and its k×k block come from one ``gram_rows`` call.
     ``alpha`` is left stale — call ``refresh_alpha`` with the new targets.
     The caller must have grown the bucket to hold the k extra rows."""
-    idx = int(post.mask.sum())
     k = x_new.shape[0]
     params = post.params
-    crosses = torch.stack(
-        [gram_cross(xr, post.x_train, params, backend=backend) for xr in x_new],
-        dim=-2,
-    )  # (..., k, n)
-    k_rows = torch.where(post.mask, crosses, torch.zeros_like(crosses))
+    rows = gram_rows(x_new, post.x_train, idx, post.x_train.shape[0], params,
+                     backend=backend)  # (..., k, n)
+    k_rows = torch.where(post.mask, rows, torch.zeros_like(rows))
     noise = (torch.exp(2.0 * params.log_noise) + _JITTER)[..., None, None]
-    eye = torch.eye(k, dtype=crosses.dtype, device=crosses.device)
-    k_block = gram(x_new, x_new, params, backend=backend) + noise * eye
+    eye = torch.eye(k, dtype=rows.dtype, device=rows.device)
+    k_block = rows[..., idx : idx + k] + noise * eye
     chol, w, l22 = cholesky_append_block(post.chol, k_rows, k_block, idx)
     linv = (
         None

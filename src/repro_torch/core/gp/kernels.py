@@ -6,7 +6,7 @@ Default: Matérn-5/2 with automatic relevance determination (ARD), the
 
 ``matern52_ard`` is the plain torch implementation (differentiable; the
 acquisition refinement takes its gradients through it). ``gram`` and
-``gram_cross`` dispatch ``backend="torch"`` to it and ``backend="kernel"`` to
+``gram_rows`` dispatch ``backend="torch"`` to it and ``backend="kernel"`` to
 the hand-written Matérn-5/2 kernels in ``repro_torch/kernels/matern52``
 (float32, like the TPU kernels they replace).
 
@@ -22,7 +22,8 @@ from repro_torch.core.gp.params import GPHyperParams
 from repro_torch.core.gp.warping import warp_inputs
 
 __all__ = [
-    "matern52_ard", "matern52_response", "sqdist", "gram", "gram_cross", "SQRT5",
+    "matern52_ard", "matern52_response", "sqdist", "gram", "gram_rows", "append_rows",
+    "SQRT5",
 ]
 
 SQRT5 = 2.2360679774997896
@@ -98,24 +99,44 @@ def gram(
     raise ValueError(f"unknown gram backend {backend!r}")
 
 
-def gram_cross(
+def append_rows(
+    x_new: torch.Tensor, x_train: torch.Tensor, idx: int, size: int
+) -> torch.Tensor:
+    """The ``size`` rows of a bucket after appending x_new (R, d) at rows
+    idx, idx + 1, …: x_train[:idx], then x_new, then zero rows."""
+    z = x_train.new_zeros((size, x_train.shape[-1]))
+    z[:idx] = x_train[:idx]
+    end = min(size, idx + x_new.shape[0])
+    z[idx:end] = x_new[: end - idx].to(z.dtype)
+    return z
+
+
+def gram_rows(
     x_new: torch.Tensor,
     x_train: torch.Tensor,
+    idx: int,
+    size: int,
     params: GPHyperParams,
     *,
     warp: bool = True,
     backend: str = "torch",
 ) -> torch.Tensor:
-    """Single cross-covariance row k(x_new, X): (d,), (n, d) -> (n,), or
-    (S, n) for sampled parameters.
+    """Cross rows of appending x_new (R, d) at rows idx, idx + 1, … of a
+    bucket: (R, size), or (S, R, size) for sampled parameters. Entry (r, j)
+    is k(x_new_r, z_j) over the rows z of ``append_rows``; columns from
+    idx + R on are 0. The append of row r reads columns [0, idx + r) of row
+    r, so one call serves a whole pending set, and each row equals the cross
+    row of its own append (row r against the bucket after rows 0…r−1).
 
     The rank-1 posterior append (``repro_torch.core.gp.incremental``) needs
-    only this row, not the full n×n gram; the kernel backend dispatches to
-    the dedicated ``matern52_cross`` row kernel."""
+    only these rows, not the full n×n gram; the kernel backend dispatches
+    to the ``matern52_cross`` kernel: one launch for all rows and samples."""
     if backend == "kernel":
-        from repro_torch.kernels.matern52.ops import matern52_cross
+        from repro_torch.kernels.matern52.ops import matern52_rows
 
-        return matern52_cross(x_new, x_train, params, warp=warp)
+        return matern52_rows(x_new, x_train, idx, size, params, warp=warp)
     if backend != "torch":
         raise ValueError(f"unknown gram backend {backend!r}")
-    return matern52_ard(x_new[None, :], x_train, params, warp=warp)[..., 0, :]
+    out = matern52_ard(x_new, append_rows(x_new, x_train, idx, size), params, warp=warp)
+    out[..., idx + x_new.shape[0]:] = 0.0
+    return out

@@ -58,6 +58,7 @@ import torch
 from repro_torch.core import prng, telemetry
 from repro_torch.core.device import resolve_device
 from repro_torch.core.gp import gp as gplib
+from repro_torch.core.gp import kernels as gpkernels
 from repro_torch.core.gp import params as gpparams
 from repro_torch.core.gp.fit import map_gphps, mcmc_gphps
 from repro_torch.core.gp.multi import (
@@ -398,7 +399,7 @@ class BOSuggester:
         self, store: ObservationStore, k: int, pend_np: np.ndarray
     ) -> List[Dict[str, Any]]:
         with telemetry.span(
-            "suggest.decide", n=store.num_observations, k=k
+            "suggest.decide", n=store.num_observations, k=k, pending=len(pend_np)
         ):
             return self._decide_impl(store, k, pend_np)
 
@@ -461,8 +462,10 @@ class BOSuggester:
             ):
                 work, y_work = self._fantasy_append_block(work, y_work, pend_np)
             else:
-                for xp in pend_np:
-                    work, y_work = self._fantasy_append(work, y_work, xp)
+                xb = self._tensor(pend_np)
+                rows = self._pending_rows(work, xb, len(y_work))
+                for p, xq in enumerate(xb):
+                    work, y_work = self._fantasy_append(work, y_work, xq, rows[..., p, :])
         elif len(pend_np) > 0:
             n_excl = min(len(pend_np), cfg.max_pending)
             pend_buf[:n_excl] = pend_np[:n_excl]
@@ -489,7 +492,7 @@ class BOSuggester:
             picks.append(vec)
             if slot + 1 < k:
                 if cfg.pending_strategy in ("liar", "kb"):
-                    work, y_work = self._fantasy_append(work, y_work, vec)
+                    work, y_work = self._fantasy_append(work, y_work, self._tensor(vec))
                 elif n_excl < cfg.max_pending:
                     pend_buf[n_excl] = vec
                     pend_mask[n_excl] = True
@@ -685,8 +688,10 @@ class BOSuggester:
         head = heads_for(post, y_heads)
         yh_work = [list(y_heads[j, :n_live]) for j in range(len(y_heads))]
         if cfg.pending_strategy in ("liar", "kb") and len(pend_np) > 0:
-            for xp in pend_np:
-                work, yh_work = self._fantasy_append_multi(work, yh_work, xp)
+            xb = self._tensor(pend_np)
+            rows = self._pending_rows(work, xb, n_live)
+            for p, xq in enumerate(xb):
+                work, yh_work = self._fantasy_append_multi(work, yh_work, xq, rows[..., p, :])
             head = heads_for(work, self._pad_heads(yh_work, work))
         elif len(pend_np) > 0:
             n_excl = min(len(pend_np), cfg.max_pending)
@@ -716,7 +721,8 @@ class BOSuggester:
             picks.append(vec)
             if slot + 1 < k:
                 if cfg.pending_strategy in ("liar", "kb"):
-                    work, yh_work = self._fantasy_append_multi(work, yh_work, vec)
+                    work, yh_work = self._fantasy_append_multi(
+                        work, yh_work, self._tensor(vec))
                     head = heads_for(work, self._pad_heads(yh_work, work))
                 elif n_excl < cfg.max_pending:
                     pend_buf[n_excl] = vec
@@ -734,13 +740,13 @@ class BOSuggester:
         return out
 
     def _fantasy_append_multi(
-        self, work, yh_work: List[List[float]], x_vec: np.ndarray
+        self, work, yh_work: List[List[float]], xq: torch.Tensor, row=None
     ):
         """Multi-head fantasy fold: append the input once to the shared
         factor and extend every head's target list with its fantasy value
-        (constant liar, or per-head kriging-believer means)."""
+        (constant liar, or per-head kriging-believer means). ``row``: as in
+        ``_fantasy_append``."""
         cfg = self.config
-        xq = self._tensor(x_vec)
         if cfg.pending_strategy == "kb":
             alphas_now = solve_head_alphas(
                 work, self._tensor(self._pad_heads(yh_work, work))
@@ -753,10 +759,7 @@ class BOSuggester:
             vals = [float(v) for v in torch.mean(mu, dim=0)[:, 0].cpu().numpy()]
         else:
             vals = [cfg.liar_value] * len(yh_work)
-        live = len(yh_work[0])
-        if live >= work.x_train.shape[0]:
-            work = grow_posterior(work, bucket_size(live + 1))
-        work = posterior_append(work, xq, backend=cfg.fit_backend)
+        work = self._append_fantasy_input(work, len(yh_work[0]), xq, row)
         yh_work = [col + [v] for col, v in zip(yh_work, vals)]
         y_pad = np.zeros(work.x_train.shape[0])
         y_pad[: len(yh_work[0])] = yh_work[0]
@@ -860,25 +863,46 @@ class BOSuggester:
             if post.x_train.shape[0] < nb_i:
                 post = grow_posterior(post, nb_i)
             post = posterior_append(
-                post, self._tensor(store.x_rows(i, i + 1)[0]),
+                post, self._tensor(store.x_rows(i, i + 1)[0]), idx=i,
                 backend=self.config.fit_backend,
             )
         return post
 
-    def _fantasy_append(self, work, y_work: List[float], x_vec: np.ndarray):
+    def _pending_rows(self, work, xb: torch.Tensor, live: int) -> torch.Tensor:
+        """The cross rows of folding xb (R, d) into ``work`` at rows live,
+        live + 1, …: one ``gram_rows`` call — one kernel launch — for the
+        whole set, on the columns of the bucket the last append lands in.
+        Row r equals what its own append would compute."""
+        size = max(work.x_train.shape[0], bucket_size(live + len(xb)))
+        return gpkernels.gram_rows(
+            xb, work.x_train, live, size, work.params, backend=self.config.fit_backend
+        )
+
+    def _append_fantasy_input(self, work, live: int, xq: torch.Tensor, row):
+        """Grow the bucket if it is full and append xq at row ``live`` (the
+        live count, known here: no read-back), its cross row ``row`` from
+        ``_pending_rows``, or computed now if None."""
+        if row is None:
+            row = self._pending_rows(work, xq[None], live)[..., 0, :]
+        if live >= work.x_train.shape[0]:
+            work = grow_posterior(work, bucket_size(live + 1))
+        return posterior_append(
+            work, xq, idx=live, cross=row[..., : work.x_train.shape[0]],
+            backend=self.config.fit_backend,
+        )
+
+    def _fantasy_append(self, work, y_work: List[float], xq: torch.Tensor, row=None):
         """Fold a fantasized observation (pending candidate or interim batch
-        pick) into the scratch posterior via the rank-1 append."""
+        pick) into the scratch posterior via the rank-1 append. ``row`` is
+        its cross row when the caller computed a pending set's rows at once
+        (``_pending_rows``)."""
         cfg = self.config
-        xq = self._tensor(x_vec)
         if cfg.pending_strategy == "kb":
             mu, _ = gplib.predict(work, xq[None, :], backend=cfg.fit_backend)
             val = float(torch.mean(mu))  # kriging believer: integrated mean
         else:
             val = cfg.liar_value  # constant liar in standardized space
-        live = len(y_work)
-        if live >= work.x_train.shape[0]:
-            work = grow_posterior(work, bucket_size(live + 1))
-        work = posterior_append(work, xq, backend=cfg.fit_backend)
+        work = self._append_fantasy_input(work, len(y_work), xq, row)
         y_work = y_work + [val]
         y_pad = np.zeros(work.x_train.shape[0])
         y_pad[: len(y_work)] = y_work
@@ -897,7 +921,7 @@ class BOSuggester:
         if work.x_train.shape[0] < need:
             work = grow_posterior(work, need)
         work = posterior_append_block(
-            work, self._tensor(x_block), backend=cfg.fit_backend
+            work, self._tensor(x_block), idx=live, backend=cfg.fit_backend
         )
         y_work = y_work + [cfg.liar_value] * k
         y_pad = np.zeros(work.x_train.shape[0])

@@ -27,8 +27,8 @@ __all__ = ["LAUNCHES", "KERNEL_NAMES", "reset_launch_counts"]
 
 KERNEL_NAMES = (
     "acq_score", "acq_score_multi", "matern52_gram", "matern52_cross",
-    "flash_attention", "rglru_scan", "mamba_scan", "decode_attention",
-    "slice_chain",
+    "matern52_operand", "flash_attention", "rglru_scan", "mamba_scan",
+    "decode_attention", "slice_chain",
 )
 
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}

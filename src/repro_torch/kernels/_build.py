@@ -136,7 +136,11 @@ _ARGTYPES = {
     + [ctypes.c_int] * 11
     + [ctypes.c_longlong, ctypes.c_void_p],
     "matern52_gram": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "matern52_cross": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    # x_new, x_train, table, out; S, R, m, d, idx, warp; stream
+    "matern52_cross": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    # x, table, mask, out; S, n, d, warp; jitter; stream
+    "matern52_operand": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_double, ctypes.c_void_p],
     # q, k, v, out; B, S, Hq, Hkv, Dh, window; softcap; scale; stream
     "flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
@@ -153,8 +157,10 @@ _ARGTYPES = {
     "slice_chain": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
     + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p],
 }
-# Host-side helpers (no launch): name -> (argtypes, restype).
+# Entry points without a dtype suffix: name -> (argtypes, restype). All
+# but matern52_empty (an empty kernel: the launch floor) launch nothing.
 _HELPERS = {
+    "matern52_empty": ([ctypes.c_void_p], ctypes.c_int),
     "acq_score_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),
     "acq_score_smem_limit": ([ctypes.c_int], ctypes.c_longlong),
     "acq_score_multi_smem_bytes": ([ctypes.c_int] * 5, ctypes.c_longlong),

@@ -6,10 +6,10 @@ the chain's draws (``pack_table``). It runs ``slice_sampler.run_chain`` on
 the host; each evaluation tests the box and adds the Gaussian prior on the
 host, builds the masked gram, factorizes it and solves on the data's device
 (``gp.log_marginal_likelihood``) and reads back one float. The gram type
-names the gram: float32 is ``gram(backend="kernel")`` — the plain Matérn
-gram on a CPU tensor, ``matern52_gram``'s launch on a CUDA tensor, whose
-arithmetic the chain kernel's in-block gram repeats — and float64 is
-``matern52_ard``.
+names the gram: float32 is the kernel backend's masked gram — the plain
+version on a CPU tensor, one ``matern52_operand`` launch on a CUDA tensor,
+whose gram entries the chain kernel's in-block gram repeats bit for bit —
+and float64 is ``matern52_ard``.
 """
 
 from __future__ import annotations

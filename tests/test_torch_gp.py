@@ -31,6 +31,12 @@ from repro_torch.core.gp import kernels as TK
 from repro_torch.core.gp import params as TP
 from repro_torch.core.gp import warping as TW
 from repro_torch.core.gp.slice_sampler import SliceSamplerConfig as TSC
+from repro_torch.core.history import bucket_size
+from repro_torch import core as TC
+from repro_torch.core import suggest as TS
+from repro_torch.core.optimize_acq import AcqOptConfig as TAcq
+from repro_torch.kernels.matern52.ops import packed_params
+from repro_torch.kernels.matern52.plain import matern52_gram_plain
 
 TINY = dict(num_samples=12, burn_in=6, thin=2)
 
@@ -113,9 +119,11 @@ def test_warp_and_gram(d):
             got[s], np.asarray(JK.matern52_ard(jnp.asarray(x1), jnp.asarray(x2), js)),
             rtol=0, atol=1e-12,
         )
-    # the cross row is one row of the gram (the kernel is symmetric)
+    # a cross row is one row of the gram (the kernel is symmetric): x2[0]
+    # appended after the 9 rows of x1, laid on their 9 columns
     np.testing.assert_allclose(
-        TK.gram_cross(t(x2[0]), t(x1), tb).numpy(), got[:, :, 0], rtol=0, atol=1e-12
+        TK.gram_rows(t(x2[:1]), t(x1), 9, 9, tb).numpy()[:, 0], got[:, :, 0], rtol=0,
+        atol=1e-12,
     )
 
 
@@ -193,9 +201,9 @@ def test_posterior_append_matches_refit_and_reference(with_inverse, S):
     jpost, tpost, (x, y, mask) = both_posteriors(8, 5, d, S, with_inverse)
     rng = np.random.default_rng(9)
     new = rng.random((2, d))
-    for row in new:
+    for i, row in enumerate(new):
         jpost = JI.posterior_append(jpost, jnp.asarray(row))
-        tpost = TI.posterior_append(tpost, t(row))
+        tpost = TI.posterior_append(tpost, t(row), idx=5 + i)
     y2 = y.copy()
     y2[5:7] = rng.standard_normal(2)
     jpost = JI.refresh_alpha(jpost, jnp.asarray(y2))
@@ -218,7 +226,7 @@ def test_grow_block_append_and_delete():
     assert_post_close(tpost, jpost)
     block = np.random.default_rng(4).random((3, d))
     jpost = JI.posterior_append_block(jpost, jnp.asarray(block))
-    tpost = TI.posterior_append_block(tpost, t(block))
+    tpost = TI.posterior_append_block(tpost, t(block), idx=6)
     assert_post_close(tpost, jpost)
     jpost, tpost = JI.posterior_delete(jpost, 2), TI.posterior_delete(tpost, 2)
     assert_post_close(tpost, jpost)
@@ -259,3 +267,137 @@ def test_convert_defaults_to_the_card():
         convert.posterior_from_numpy(blob)
     post = convert.posterior_from_numpy(blob, device="cpu")
     assert post.chol.device.type == "cpu" and post.chol_inv is None
+
+
+# ---------------------------------------------------------------- pending fold
+def _old_cross(x_new, x_train, params, backend):
+    """One append's cross row as the engine computed it before the rows
+    entry: a call a row, against the bucket's current rows."""
+    if backend == "torch":
+        return TK.matern52_ard(x_new[None], x_train, params)[..., 0, :]
+    packed, _ = packed_params(params, True, torch.float32)
+    row = matern52_gram_plain(x_new[None].float(), x_train.float(), *packed)[:, 0, :]
+    return row.to(x_train.dtype)
+
+
+def _engine(d, backend, **over):
+    space = TC.SearchSpace([TC.Continuous(f"x{i}", 0.0, 1.0) for i in range(d)])
+    cfg = TC.BOConfig(slice_config=TSC(**TINY), acq=TAcq(num_anchors=64, num_refine=2,
+                                                          refine_steps=2),
+                      fit_backend=backend, pending_strategy="liar", **over)
+    return space, cfg
+
+
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+@pytest.mark.parametrize("live,bucket", [(5, 8), (7, 8), (60, 64)])
+def test_pending_fold_through_rows_is_the_sequential_fold(live, bucket, backend):
+    """The engine's pending fold — the set's cross rows from one call, one
+    rank-1 append a row — gives the factor, L⁻¹, rows, mask and α of three
+    sequential appends that each compute their own row, bit for bit,
+    growing the bucket 8 → 16 where it fills (live = 7)."""
+    d, S = 3, 4
+    x, y, mask = data(bucket, live, d, seed=live)
+    tp = convert.params_from_numpy(packed_draws(d, S, live), d, device="cpu")
+    post = TG.fit_posterior_batch(t(x), t(y), tp, t(mask, torch.bool), backend=backend,
+                                  with_inverse=True)
+    space, cfg = _engine(d, backend)
+    sugg = TC.BOSuggester(space, cfg, seed=0, device="cpu")
+    pend = t(np.random.default_rng(live + 1).random((3, d)))
+    rows = sugg._pending_rows(post, pend, live)
+    a, ya = post, list(y[:live])
+    b, yb = post, list(y[:live])
+    c = post
+    for p in range(3):
+        a, ya = sugg._fantasy_append(a, ya, pend[p], rows[..., p, :])
+        b, yb = sugg._fantasy_append(b, yb, pend[p])
+        idx = live + p
+        if idx >= c.x_train.shape[0]:
+            c = TI.grow_posterior(c, 16)
+        c = TI.posterior_append(c, pend[p], idx=idx, backend=backend,
+                                cross=_old_cross(pend[p], c.x_train, tp, backend))
+    c = TI.refresh_alpha(c, torch.nn.functional.pad(t(ya), (0, c.x_train.shape[0] - len(ya))))
+    assert ya == yb and a.x_train.shape[0] == bucket_size(live + 3)
+    for key in ("x_train", "mask", "chol", "chol_inv", "alpha"):
+        assert torch.equal(getattr(a, key), getattr(b, key)), key
+        assert torch.equal(getattr(a, key), getattr(c, key)), key
+
+
+@pytest.mark.parametrize("backend", ["kernel", "torch"])
+@pytest.mark.parametrize("live", [5, 13])
+def test_block_fold_through_rows_equals_the_composition(live, backend):
+    """``posterior_append_block`` takes its crosses and its k×k block from
+    one ``gram_rows`` call; it equals, bit for bit, the fold from a cross
+    row a call and a k×k gram."""
+    d, S, k = 3, 3, 3
+    x, y, mask = data(16, live, d, seed=live)
+    tp = convert.params_from_numpy(packed_draws(d, S, 2), d, device="cpu")
+    post = TG.fit_posterior_batch(t(x), t(y), tp, t(mask, torch.bool), backend=backend,
+                                  with_inverse=True)
+    block = t(np.random.default_rng(3).random((k, d)))
+    got = TI.posterior_append_block(post, block, idx=live, backend=backend)
+    crosses = torch.stack([_old_cross(xr, post.x_train, tp, backend) for xr in block], dim=-2)
+    k_rows = torch.where(post.mask, crosses, torch.zeros_like(crosses))
+    noise = (torch.exp(2.0 * tp.log_noise) + TG._JITTER)[..., None, None]
+    k_block = TK.gram(block, block, tp, backend=backend) + noise * torch.eye(k, dtype=torch.float64)
+    chol, w, l22 = TI.cholesky_append_block(post.chol, k_rows, k_block, live)
+    linv = TI._inverse_append_block(post.chol_inv, w, l22, live)
+    assert torch.equal(got.chol, chol) and torch.equal(got.chol_inv, linv)
+    assert torch.equal(got.mask, torch.arange(16) < live + k)
+    assert torch.equal(got.x_train[live : live + k], block)
+
+
+def _store_with_pending(space, n_obs, n_pend, seed=0):
+    rng = np.random.default_rng(seed)
+    store = TC.ObservationStore(space)
+    for i, cfg in enumerate(space.sample(rng, n_obs)):
+        store.push(cfg, float(sum(v * v for v in cfg.values())), key=i)
+    for j, cfg in enumerate(space.sample(rng, n_pend)):
+        store.mark_pending(100 + j, cfg)
+    return store, rng
+
+
+@pytest.mark.parametrize("fantasy_block", [False, True])
+def test_append_index_is_the_live_count(monkeypatch, fantasy_block):
+    """Every append the engine makes — pending fantasies, an interim pick,
+    the replay of new rows onto the cached factor — passes the index that
+    ``sum(mask)`` would read back from the device."""
+    seen = []
+
+    def checked(fn):
+        def wrapper(post, x_new, *, idx, **kw):
+            assert idx == int(post.mask.sum())
+            seen.append(fn.__name__)
+            return fn(post, x_new, idx=idx, **kw)
+        return wrapper
+
+    monkeypatch.setattr(TS, "posterior_append", checked(TI.posterior_append))
+    monkeypatch.setattr(TS, "posterior_append_block", checked(TI.posterior_append_block))
+    space, cfg = _engine(3, "kernel", refit_every=3, fantasy_block=fantasy_block)
+    store, rng = _store_with_pending(space, 6, 3)
+    sugg = TC.BOSuggester(space, cfg, seed=0, store=store, device="cpu")
+    sugg.suggest_batch(2)  # 3 pending, then one interim pick
+    for i, c in enumerate(space.sample(rng, 2)):  # replayed onto the cached factor
+        store.push(c, float(i), key=50 + i)
+    sugg.suggest_batch(1)
+    block = seen.count("posterior_append_block")
+    assert block == (2 if fantasy_block else 0)
+    # sequential: 3 + 1 fantasies, then 2 replayed rows and 3 fantasies
+    assert seen.count("posterior_append") == (1 + 2 if fantasy_block else 3 + 1 + 2 + 3)
+
+
+def test_rows_dispatch_once_per_pending_set(monkeypatch):
+    """One ``suggest_batch`` over 3 pending trials computes their cross rows
+    in one dispatch (one kernel launch on the card), not one per append."""
+    calls = []
+    orig = TK.gram_rows
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[0])
+        return orig(*args, **kw)
+
+    monkeypatch.setattr(TK, "gram_rows", counted)
+    monkeypatch.setattr(TI, "gram_rows", counted)
+    space, cfg = _engine(3, "kernel")
+    store, _ = _store_with_pending(space, 6, 3)
+    TC.BOSuggester(space, cfg, seed=0, store=store, device="cpu").suggest_batch(1)
+    assert calls == [3]
