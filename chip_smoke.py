@@ -49,6 +49,21 @@ of the JAX package. Phases:
    every GP decision of phases 4–5 launches ``matern52_cross`` once for its
    pending set (and once a row for interim picks) and
    ``matern52_operand`` once a factorization;
+8. the §5 paths (run after phase 5) — at the same engine configuration:
+   (e) a 24-trial job whose objective reports its learning curve, once
+   under the median rule and once under ASHA (each must stop a trial early;
+   the table under fused scoring must equal the torch scoring's); (f) two
+   24-trial jobs on one ``SelectionService``, decisions interleaved, with
+   the shared GPHP pool (adoptions > 0; ``slice_chain`` launches equal the
+   refits and are fewer than the GP decisions), again under a factor arena
+   that evicts at every decision (both tables bit for bit), and without the
+   pool, then with a refit every 3 observations, roomy and evicting (the
+   evicted factors rebuilt by replaying the appends); (g) a 24-trial
+   multi-fidelity job in service mode with in-service ASHA
+   (``acq_score_multi``'s rungs mode launches twice a slot on every
+   rung-aware decision, exactly; a trial stopped at a rung; fused and torch
+   tables equal); (h) the reference's BO-beats-random quality gate on the
+   quadratic table with the kernels on;
 6. serve path — the LM workload's serving path on recurrentgemma-9b at its
    full published widths and depth (38 layers, 7.48e9 parameters, seeded
    random weights made on the card): first ``flash_attention`` and
@@ -79,13 +94,14 @@ of the JAX package. Phases:
    launches per prefill), then decode after prefill and the torch
    composition's prefill once more with the model computing in float32.
 
-Launch counts are set to 0 just before each job of phases 4 and 5, the
+Launch counts are set to 0 just before each job of phases 4, 5 and 8, the
 serving runs of phases 6 and 7 and the flash-decode path, and read just
 after; each must launch every kernel of its path (jobs: and score only row
 buckets that phase 2 held against the plain version). Prints one line per
 case (with the rate of the resource that bounds it and its share of the
 bound) and each phase's wall time, then a
-JSON line of per-kernel numbers, then as its last line
+JSON line of per-kernel numbers (``launches`` from the kernel's own path,
+``s5_launches`` from each path of phase 8), then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
 any failure — including no visible card.
 """
@@ -851,6 +867,211 @@ def mamba_phase(torch, K, check, dev) -> dict:
     return launches
 
 
+def section5_phase(np, torch, K, telemetry, space, objective, paper, drive, run_job,
+                   card) -> dict:
+    """Phase 8, the paper's §5 features on the card at the paper's engine
+    configuration: (e) early stopping (median rule, ASHA), (f) two jobs on
+    one ``SelectionService`` (GPHP pool adoption; a factor arena small
+    enough to evict; the same jobs without the pool), (g) in-service
+    multi-fidelity (``acq_score_multi``'s rungs mode on every rung-aware
+    decision) and (h) the reference's BO-beats-random quality gate.
+    Returns each path's launch counts, by kernel."""
+    from repro_torch.core import (
+        ASHAConfig, ASHARule, BOConfig, BOSuggester, MedianRule, SelectionService,
+        ServiceConfig, Tuner, TuningJobConfig,
+    )
+    from repro_torch.core.blackbox import TabulatedBackend, quadratic_table
+    from repro_torch.core.gp.slice_sampler import SliceSamplerConfig
+
+    print(f"phase 8 on {card}", flush=True)
+    out = {}
+
+    def table_of(res):
+        return np.stack([space.encode(t.config) for t in res.trials])
+
+    def same_under_torch_scoring(label, res, tuner_kw_of, **job):
+        """The job again with the torch composition scoring the anchors: the
+        trial table must be the fused kernels' (max |Δ| ≤ 1e-9, as phase 3)."""
+        cfg = BOConfig(**{**paper, "backend": "torch"})
+        _, ref = run_job(cfg, 24, 4, objective, tuner_kw_of(), **job)
+        got, want = table_of(res), table_of(ref)
+        diff = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
+        print(f"  {label}: kernel vs torch scoring max |Δ| {diff:.3e} (tol 1e-9), "
+              f"states equal {[t.state for t in res.trials] == [t.state for t in ref.trials]}",
+              flush=True)
+        if diff > 1e-9 or [t.state for t in res.trials] != [t.state for t in ref.trials]:
+            fail(f"{label}: the trial table moves with the scoring backend")
+
+    # (e) early stopping: the objective reports its 10-point learning curve
+    for key, make_rule in (("e_median", MedianRule), ("e_asha", ASHARule)):
+        label = f"(e) {key[2:]} rule"
+        _, res, launches = drive(label, BOConfig(**paper), 24, 4, "acq_score",
+                                 tuner_kw={"stopping_rule": make_rule()}, stopped_ok=True)
+        stopped = [t.trial_id for t in res.trials if t.state == "STOPPED"]
+        print(f"  {label}: {len(stopped)} trials stopped early {stopped}, "
+              f"{sum(len(t.curve) for t in res.trials)} of "
+              f"{10 * len(res.trials)} iterations run; {card}", flush=True)
+        if not stopped or res.num_early_stopped != len(stopped):
+            fail(f"{label}: no trial stopped early")
+        same_under_torch_scoring(label, res, lambda: {"stopping_rule": make_rule()})
+        out[key] = launches
+
+    # (f) two jobs on one service: decisions interleaved, each job keeping 4
+    # trials in flight (the oldest completes, one new trial is suggested)
+    def service_pair(label, share, budget_mb, refit_every=1):
+        cfg = BOConfig(**{**paper, "refit_every": refit_every})
+        svc = SelectionService(ServiceConfig(
+            share_gphp=share, sibling_warm_start=False, arena_budget_mb=budget_mb,
+            default_bo_config=cfg))
+        handles = [svc.register_job(f"job-{j}", space, seed=j) for j in (0, 1)]
+        telemetry.get().reset()
+        telemetry.set_enabled(True)
+        K.reset_launch_counts()
+        inflight = [[], []]
+        tables = [[], []]
+        decide_ms = [[], []]
+        while any(len(tables[j]) < 24 or inflight[j] for j in (0, 1)):
+            for j, h in enumerate(handles):
+                if inflight[j] and (len(inflight[j]) == 4 or len(tables[j]) == 24):
+                    tid, c = inflight[j].pop(0)
+                    h.store.clear_pending(tid)
+                    h.store.push(c, float(objective(c)[0][-1]), key=tid)
+                free = min(4 - len(inflight[j]), 24 - len(tables[j]))
+                if free <= 0:
+                    continue
+                gp = h.store.num_observations >= max(2, cfg.num_init)
+                t0 = time.perf_counter()
+                batch = h.suggest_batch(free)
+                torch.cuda.synchronize()
+                if gp:
+                    decide_ms[j].append((time.perf_counter() - t0) * 1e3)
+                for c in batch:
+                    tid = len(tables[j])
+                    h.store.mark_pending(tid, c)
+                    inflight[j].append((tid, c))
+                    tables[j].append(space.encode(c))
+        launches = dict(K.LAUNCHES)
+        counters = telemetry.get().metrics()["counters"]
+        spans = {}
+        for ev in telemetry.get().trace_events():
+            if ev.get("kind") == "span":
+                spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+        telemetry.set_enabled(False)
+        decisions = spans.get("suggest.posterior", 0)
+        adopt = counters.get("suggest.gphp.adopt", 0)
+        refit = counters.get("suggest.gphp.refit", 0)
+        rebuilt = spans.get("suggest.factor_rebuild", 0)
+        print(f"{label}: 2 x 24 trials, {decisions} GP decisions, {adopt} adoptions, "
+              f"{refit} refits, slice_chain {launches['slice_chain']} launches "
+              f"({launches['slice_chain'] / max(decisions, 1):.3f} per GP decision), "
+              f"{rebuilt} replayed rebuilds, arena evictions {svc.arena.evictions}, "
+              f"pool {svc.stats()['groups'][0]['pool']}; decision p50 "
+              + ", ".join(f"job-{j} {statistics.median(decide_ms[j]):.2f} ms "
+                          f"(n={len(decide_ms[j])})" for j in (0, 1))
+              + f"; {card}", flush=True)
+        for k in ("acq_score", "slice_chain", "matern52_operand", "matern52_cross"):
+            if launches[k] == 0:
+                fail(f"{label} never launched {k}")
+        if launches["slice_chain"] != refit or spans.get("suggest.gphp_fit", 0) != refit:
+            fail(f"{label}: {launches['slice_chain']} slice_chain launches for {refit} refits")
+        if launches["matern52_operand"] != spans.get("suggest.factorize", 0) + rebuilt:
+            fail(f"{label}: {launches['matern52_operand']} matern52_operand launches for "
+                 f"{spans.get('suggest.factorize', 0)} factorizations and {rebuilt} rebuilds")
+        # a refit after every observation: each GP decision refits or adopts
+        if refit_every == 1 and adopt + refit != decisions:
+            fail(f"{label}: {adopt} adoptions + {refit} refits for {decisions} GP decisions")
+        return [np.stack(t) for t in tables], launches, adopt, decisions, svc.arena.evictions
+
+    def under_eviction(label, roomy_tables, refit_every):
+        """The same two jobs under an arena too small for any factor but the
+        deciding job's (each decision evicts the other job's): evictions, and
+        both trial tables bit for bit."""
+        tables, _, _, _, evictions = service_pair(
+            f"{label}, 1e-6 MB arena", True, 1e-6, refit_every)
+        if evictions == 0:
+            fail(f"{label}: the small arena never evicted")
+        for j in (0, 1):
+            if not np.array_equal(tables[j], roomy_tables[j]):
+                fail(f"{label}: job-{j}'s trial table moved under eviction")
+        print(f"  {label}: both trial tables bit for bit under {evictions} evictions",
+              flush=True)
+
+    label = "(f) service, shared GPHP pool"
+    pool_tables, launches, adopt, decisions, _ = service_pair(label, True, 256.0)
+    if adopt == 0 or launches["slice_chain"] >= decisions:
+        fail("(f) service: no adoption, or as many slice_chain launches as GP decisions")
+    out["f"] = launches
+    under_eviction(label, pool_tables, 1)
+    service_pair("(f) service, no pool (share_gphp=False)", False, 256.0)
+    # with a refit every 3 observations an evicted factor is rebuilt by
+    # replaying the boundary factorization and the appends since it
+    label = "(f) service, shared pool, refit every 3"
+    pool_tables, _, _, _, _ = service_pair(label, True, 256.0, 3)
+    under_eviction(label, pool_tables, 3)
+
+    # (g) multi-fidelity: in-service ASHA, rung-aware decisions score through
+    # acq_score_multi's rungs mode (2 launches a slot: anchors, re-rank)
+    mf = ASHAConfig(r_min=1, eta=3, max_rungs=3)
+
+    def mf_kw():
+        return {"service": SelectionService(ServiceConfig(sibling_warm_start=False))}
+
+    _, res, launches = drive("(g) multi-fidelity", BOConfig(**paper), 24, 4, "acq_score_multi",
+                             tuner_kw=mf_kw(), stopped_ok=True, multi_fidelity=mf,
+                             job_name="mf")
+    rung_slots = [ev["attrs"]["k"] for ev in telemetry.get().trace_events()
+                  if ev.get("kind") == "span" and ev["name"] == "suggest.rungs"]
+    stopped = [t.trial_id for t in res.trials if t.state == "STOPPED"]
+    print(f"  (g): {len(rung_slots)} rung-aware decisions ({sum(rung_slots)} slots), "
+          f"acq_score_multi {launches['acq_score_multi']} launches (expected "
+          f"{2 * sum(rung_slots)}), {len(stopped)} trials stopped at a rung {stopped}; "
+          f"{card}", flush=True)
+    if not rung_slots or launches["acq_score_multi"] != 2 * sum(rung_slots):
+        fail("(g) multi-fidelity: acq_score_multi did not launch on every rung-aware "
+             "decision")
+    if not stopped:
+        fail("(g) multi-fidelity: no trial stopped at a rung")
+    same_under_torch_scoring("(g) multi-fidelity", res, mf_kw, multi_fidelity=mf,
+                             job_name="mf")
+    out["g"] = launches
+
+    # (h) the reference's quality gate (tests/test_quality_gate.py) with the
+    # kernels on: BO's mean best over seeds 0-2 below random's and below 0.05
+    table = quadratic_table()
+    gate = BOConfig(num_init=6, slice_config=SliceSamplerConfig(
+        num_samples=12, burn_in=6, thin=2), refit_every=3, cost_cooling=2.0,
+        backend="kernel", fit_backend="kernel")
+
+    class Random:
+        def __init__(self, seed):
+            self.rng = np.random.default_rng(seed)
+
+        def suggest_batch(self, k):
+            return table.space.sample(self.rng, k)
+
+    def gate_run(sugg, seed):
+        backend = TabulatedBackend(table, startup_cost=0.05)
+        res = Tuner(table.space, table.objective, sugg, backend, TuningJobConfig(
+            max_trials=20, max_parallel=2, seed=seed, job_name=f"gate-{seed}")).run()
+        if backend.evaluations != 20:
+            fail("(h) quality gate: not 20 evaluations")
+        return float(res.best_trial.objective)
+
+    K.reset_launch_counts()
+    bo = [gate_run(BOSuggester(table.space, gate, seed=s), s) for s in (0, 1, 2)]
+    gate_launches = dict(K.LAUNCHES)
+    rand = [gate_run(Random(s), s) for s in (0, 1, 2)]
+    print(f"(h) quality gate: BO best {bo} (mean {np.mean(bo):.6f}), random {rand} "
+          f"(mean {np.mean(rand):.6f}); acq_score {gate_launches['acq_score']}, "
+          f"slice_chain {gate_launches['slice_chain']} launches; {card}", flush=True)
+    if not np.mean(bo) < np.mean(rand) or not np.mean(bo) < 0.05:
+        fail("(h) quality gate: BO does not beat random on the quadratic table")
+    if gate_launches["acq_score"] == 0 or gate_launches["slice_chain"] == 0:
+        fail("(h) quality gate: the kernels did not run")
+    out["h"] = gate_launches
+    return out
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1501,10 +1722,11 @@ def main() -> None:
     PARETO = (MetricSpec("loss"), MetricSpec("size"),
               MetricSpec("latency", objective=False, threshold=LATENCY_MAX))
 
-    def run_job(cfg, trials, parallel, fn=objective, **job):
+    def run_job(cfg, trials, parallel, fn=objective, tuner_kw=None, **job):
         sugg = BOSuggester(space, cfg, seed=0)
         tuner = Tuner(space, fn, sugg, SimBackend(),
-                      TuningJobConfig(max_trials=trials, max_parallel=parallel, **job))
+                      TuningJobConfig(max_trials=trials, max_parallel=parallel, **job),
+                      **(tuner_kw or {}))
         return tuner, tuner.run()
 
     for label, fn, job in (("single-metric", objective, {}),
@@ -1534,10 +1756,13 @@ def main() -> None:
         pending_strategy="liar",
     )
 
-    def drive(label, cfg, trials, parallel, scorer, fn=objective, **job):
+    def drive(label, cfg, trials, parallel, scorer, fn=objective, tuner_kw=None,
+              stopped_ok=False, **job):
         """One job with spans on and launch counts set to 0 just before it;
-        checks the trials, the launches of ``scorer``, ``slice_chain`` (once
-        per refit), ``matern52_operand`` (once per factorization),
+        checks the trials (completed, or stopped early when ``stopped_ok``),
+        the launches of ``scorer``, ``slice_chain`` (once
+        per refit), ``matern52_operand`` (once per factorization or replayed
+        rebuild),
         ``matern52_cross`` (once per GP decision with pending trials, once
         per interim pick) and, for the kriging believer, ``matern52_gram``
         (once per fantasy), and that the row buckets it scored were held
@@ -1550,15 +1775,16 @@ def main() -> None:
         telemetry.set_enabled(True)
         K.reset_launch_counts()
         t0 = time.perf_counter()
-        tuner, res = run_job(cfg, trials, parallel, fn, **job)
+        tuner, res = run_job(cfg, trials, parallel, fn, tuner_kw, **job)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(K.LAUNCHES)
         telemetry.set_enabled(False)
 
         done = res.trials
-        if not done or any(t.state != "COMPLETED" for t in done):
-            fail(f"{label}: {len(done)} trials, not all completed")
+        ended = ("COMPLETED", "STOPPED") if stopped_ok else ("COMPLETED",)
+        if not done or any(t.state not in ended for t in done):
+            fail(f"{label}: {len(done)} trials, not all {' or '.join(ended).lower()}")
         if "max_cost" not in job and len(done) != trials:
             fail(f"{label}: {len(done)} trials, not {trials}")
         enc = np.stack([space.encode(t.config) for t in done])
@@ -1587,10 +1813,11 @@ def main() -> None:
         if launches["slice_chain"] != refits or len(chains) != refits:
             fail(f"{label}: {launches['slice_chain']} slice_chain launches and "
                  f"{len(chains)} chains for {refits} refits")
-        factorized = len(spans.get("suggest.factorize", []))
+        factorized = len(spans.get("suggest.factorize", [])) + len(
+            spans.get("suggest.factor_rebuild", []))
         if launches["matern52_operand"] != factorized:
             fail(f"{label}: {launches['matern52_operand']} matern52_operand launches "
-                 f"for {factorized} factorizations")
+                 f"for {factorized} factorizations and rebuilds")
 
         def med(span_name):
             v = spans.get(span_name)
@@ -1753,6 +1980,13 @@ def main() -> None:
         fail("(d) kriging believer: best objective not finite")
     phase_done("5 multi-metric, cost-aware and kriging-believer paths", t_phase)
 
+    # 8. the §5 paths: early stopping, the multi-job service, multi-fidelity
+    # and the quality gate, at the same engine configuration
+    t_phase = time.perf_counter()
+    s5_launches = section5_phase(
+        np, torch, K, telemetry, space, objective, paper, drive, run_job, card)
+    phase_done("8 §5 paths", t_phase)
+
     # 6. the LM serving path
     t_phase = time.perf_counter()
     serve_launches, decode_launches = serve_phase(torch, np, K, check, peaks, dev)
@@ -1778,6 +2012,7 @@ def main() -> None:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "s5_launches": {path: counts[kname] for path, counts in s5_launches.items()},
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

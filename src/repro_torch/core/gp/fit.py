@@ -9,6 +9,12 @@ with the gram in float32 for ``backend="kernel"`` and
 float64 for ``"torch"``, and one read-back returns the kept samples. On a
 CPU tensor its plain version runs the chain on the host. There is no
 fallback: a failed build or launch raises.
+
+``map_gphps`` is the MAP-II estimate (``empirical_bayes.maximize_mll``):
+autograd through the torch composition of the log posterior density. It
+runs on the float64 torch gram only. The reference cannot differentiate its
+Pallas gram either (no reverse-mode rule), so ``backend="kernel"`` is
+refused rather than quietly replaced by the torch gram.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import telemetry
+from repro_torch.core.gp.empirical_bayes import EmpiricalBayesConfig, maximize_mll
+from repro_torch.core.gp.gp import log_posterior_density
 from repro_torch.core.gp.params import GPHyperBounds
 from repro_torch.core.gp.slice_sampler import SliceSamplerConfig, chain_draws
 
@@ -51,9 +59,33 @@ def mcmc_gphps(
     return samples
 
 
-def map_gphps(*args, **kwargs):
-    """MAP-II (empirical Bayes) GPHP estimate — not ported yet."""
-    raise NotImplementedError(
-        "gphp_method='map' needs gp/empirical_bayes.py, which is not ported "
-        "yet (ROADMAP queue A item 3)"
-    )
+def check_map_backend(backend: str) -> None:
+    """Refuse MAP-II on the kernel gram: its kernels have no backward."""
+    if backend != "torch":
+        raise ValueError(
+            "gphp_method='map' needs gradients of the GP log posterior, and "
+            f"fit_backend={backend!r} has none: the hand-written Matern "
+            "kernels have no backward pass (the reference's Pallas gram has "
+            "no reverse-mode rule either). Use fit_backend='torch'."
+        )
+
+
+def map_gphps(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    mask: torch.Tensor,
+    bounds: GPHyperBounds,
+    z0: np.ndarray,
+    key: np.ndarray,
+    cfg: EmpiricalBayesConfig = EmpiricalBayesConfig(),
+    backend: str = "torch",
+) -> np.ndarray:
+    """MAP-II (empirical Bayes) packed GPHP estimate. Returns (3d+2,)
+    float64 numpy."""
+    check_map_backend(backend)
+
+    def log_prob(packed: torch.Tensor) -> torch.Tensor:
+        return log_posterior_density(x, y, packed, bounds, mask, backend=backend)
+
+    best = maximize_mll(log_prob, z0, bounds, key, cfg, device=x.device)
+    return best.detach().cpu().numpy()

@@ -152,17 +152,18 @@ def log_posterior_density(
 ) -> torch.Tensor:
     """Unnormalized log posterior over the *packed* GPHP vector:
     MLL + weak Gaussian prior centered mid-box; −inf outside the box
-    (the paper's hard stability bounds)."""
+    (the paper's hard stability bounds). A stack of packed vectors (R, D)
+    gives (R,): one density per row (the MAP fit's restarts)."""
     d = x.shape[-1]
     f64 = dict(dtype=packed.dtype, device=packed.device)
     lower = torch.as_tensor(bounds.lower, **f64)
     upper = torch.as_tensor(bounds.upper, **f64)
-    inside = torch.all((packed >= lower) & (packed <= upper))
+    inside = torch.all((packed >= lower) & (packed <= upper), dim=-1)
     params = GPHyperParams.unpack(packed, d)
     mll = log_marginal_likelihood(x, y, params, mask, backend=backend)
     prior_std = torch.as_tensor(np.maximum(bounds.width / 4.0, 1e-6), **f64)
     center = torch.as_tensor(bounds.center, **f64)
-    log_prior = -0.5 * torch.sum(((packed - center) / prior_std) ** 2)
+    log_prior = -0.5 * torch.sum(((packed - center) / prior_std) ** 2, dim=-1)
     return torch.where(
         inside, mll + log_prior, torch.full_like(mll, -float("inf"))
     )

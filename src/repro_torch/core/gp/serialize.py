@@ -3,11 +3,15 @@
 Arrays are shipped as little-endian raw bytes (base64) plus dtype and shape,
 so a round trip is exact for every dtype: the byte image of a float64 is its
 identity. The ``ObservationStore`` uses these for its fingerprint and its
-``state_dict``; the encoding is the JAX package's, so a store blob written
-by either package loads into the other.
+``state_dict``, the multi-job service for engine snapshots; the encoding is
+the JAX package's, so a blob written by either package loads into the other.
 
-Posterior (factor) serialization belongs to the multi-job service and waits
-with it (ROADMAP queue A item 7).
+Factor blocks (the O(S·n²) Cholesky / L⁻¹ / alpha tensors of a
+``GPPosterior``) are optional in a snapshot: they are a pure function of the
+GPHP draws and the observation rows, so a restoring service rebuilds them
+locally. ``posterior_to_wire`` / ``posterior_from_wire`` ship them when
+that is worth it; the tensors cross as host byte images and land on the
+device the caller names.
 """
 
 from __future__ import annotations
@@ -17,8 +21,19 @@ import hashlib
 from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["array_to_wire", "array_from_wire", "array_fingerprint"]
+from repro_torch.core.device import resolve_device
+from repro_torch.core.gp.gp import GPPosterior
+from repro_torch.core.gp.params import GPHyperParams
+
+__all__ = [
+    "array_to_wire",
+    "array_from_wire",
+    "array_fingerprint",
+    "posterior_to_wire",
+    "posterior_from_wire",
+]
 
 
 def array_to_wire(arr: Optional[np.ndarray]) -> Optional[Dict[str, Any]]:
@@ -51,3 +66,41 @@ def array_fingerprint(arr: Optional[np.ndarray]) -> Optional[str]:
     a = np.ascontiguousarray(np.asarray(arr))
     le = a.astype(a.dtype.newbyteorder("<"), copy=False)
     return hashlib.sha256(le.tobytes()).hexdigest()[:16]
+
+
+def _host(t: Optional[torch.Tensor]) -> Optional[np.ndarray]:
+    return None if t is None else t.detach().cpu().numpy()
+
+
+def posterior_to_wire(post: GPPosterior) -> Dict[str, Any]:
+    """Serialize a factorized ``GPPosterior`` (optionally batched over S MCMC
+    samples). GPHPs travel in packed form; ``chol_inv`` is included iff
+    cached."""
+    return {
+        "x_train": array_to_wire(_host(post.x_train)),
+        "mask": array_to_wire(_host(post.mask)),
+        "chol": array_to_wire(_host(post.chol)),
+        "alpha": array_to_wire(_host(post.alpha)),
+        "params_packed": array_to_wire(_host(post.params.pack())),
+        "chol_inv": array_to_wire(_host(post.chol_inv)),
+    }
+
+
+def posterior_from_wire(blob: Dict[str, Any], device=None) -> GPPosterior:
+    """Inverse of ``posterior_to_wire``; the tensors land on ``device``
+    (``None``: the CUDA card) ready for the incremental-update path."""
+    dev = resolve_device(device)
+
+    def tensor(name):
+        arr = array_from_wire(blob.get(name))
+        return None if arr is None else torch.as_tensor(arr).to(dev)
+
+    x_train = tensor("x_train")
+    return GPPosterior(
+        x_train=x_train,
+        mask=tensor("mask"),
+        chol=tensor("chol"),
+        alpha=tensor("alpha"),
+        params=GPHyperParams.unpack(tensor("params_packed"), x_train.shape[-1]),
+        chol_inv=tensor("chol_inv"),
+    )

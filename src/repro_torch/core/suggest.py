@@ -28,11 +28,19 @@ One decision step (``suggest_batch``):
      slots are filled from one pipeline pass instead of k full pipelines.
 
 Multi-metric jobs (a ``MetricSet`` with M > 1 on the store: constrained EI
-or Pareto random-scalarization EI) and cost-aware jobs
-(``BOConfig.cost_aware``: EI per unit cost on a log-cost head) branch off
-after the shared cold start. Their extra heads ride the objective's cached
-factor — one batched solve for the M head alphas per decision — and anchors
-are scored by the fused ``acq_score_multi`` kernel.
+or Pareto random-scalarization EI), cost-aware jobs (``BOConfig.cost_aware``:
+EI per unit cost on a log-cost head) and multi-fidelity jobs whose rung
+tables hold data (``multi_fidelity_state``: rung-weighted EI over per-rung
+heads) branch off after the shared cold start. Their extra heads ride the
+objective's cached factor — one batched solve for the M head alphas per
+decision — and anchors are scored by the fused ``acq_score_multi`` kernel.
+
+Both caches live in an ``EngineCache`` the suggester owns by default; in
+service mode (``repro_torch.core.service``) the ``SelectionService`` owns it
+instead: sibling jobs on the same search space adopt each other's GPHP
+draws through a shared pool, and a factor arena bounds the total resident
+factor memory across jobs (eviction drops factors only; rebuilds replay the
+factorization RNG-free, so suggestions are invariant under eviction).
 
 The store's rows stay numpy on the host and become float64 tensors on the
 engine's device at the GP boundary. The device is the suggester's
@@ -40,10 +48,8 @@ engine's device at the GP boundary. The device is the suggester's
 draws follow the JAX package's threefry key stream (``core/prng.py``), so
 the engine makes the reference's decisions and loads its ``state_dict``.
 
-Not ported yet, and refused with ``NotImplementedError`` (here or by the
-Tuner): multi-fidelity (rung-head) decisions, the subset posterior backend,
-per-head GPHP chains, MAP-II fitting and the service-owned cache pool/arena
-(ROADMAP queue A items 3, 7, 9 and 10).
+Not ported yet, and refused with ``NotImplementedError``: the subset
+posterior backend and per-head GPHP chains (ROADMAP queue A item 10).
 """
 
 from __future__ import annotations
@@ -60,7 +66,12 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.gp import gp as gplib
 from repro_torch.core.gp import kernels as gpkernels
 from repro_torch.core.gp import params as gpparams
-from repro_torch.core.gp.fit import map_gphps, mcmc_gphps
+from repro_torch.core.gp.empirical_bayes import EmpiricalBayesConfig
+from repro_torch.core.gp.fit import check_map_backend, map_gphps, mcmc_gphps
+from repro_torch.core.gp.per_resource import (
+    rung_head_targets,
+    rung_head_weights,
+)
 from repro_torch.core.gp.multi import (
     MultiOutputPosterior,
     predict_heads,
@@ -114,11 +125,14 @@ class BOConfig:
       by default: the ``"kernel"`` gram is float32 (as the TPU kernel it
       replaces) and would perturb the float64 chain. Kept separate so
       switching the scoring backend never perturbs the fitted posterior.
+      MAP-II fitting (``gphp_method="map"``) differentiates the gram, so it
+      takes ``"torch"`` only.
     """
 
     num_init: int = 3  # Sobol initial design before the GP takes over
-    gphp_method: str = "mcmc"  # "mcmc" (slice sampling) | "map" (not ported)
+    gphp_method: str = "mcmc"  # "mcmc" (slice sampling) | "map" (empirical Bayes)
     slice_config: SliceSamplerConfig = PAPER_CONFIG
+    eb_config: EmpiricalBayesConfig = EmpiricalBayesConfig()
     acq: AcqOptConfig = AcqOptConfig()
     pending_strategy: str = "exclude"  # "exclude" | "liar" | "kb" (beyond-paper)
     liar_value: float = 0.0  # standardized-space constant liar (0 = mean liar)
@@ -155,6 +169,8 @@ class BOConfig:
             )
         if self.fit_backend not in ("kernel", "torch"):
             raise ValueError(f"unknown fit_backend {self.fit_backend!r}")
+        if self.gphp_method == "map":
+            check_map_backend(self.fit_backend)
         if self.posterior_backend == "subset":
             raise NotImplementedError(
                 "posterior_backend='subset' is not ported yet "
@@ -177,31 +193,132 @@ class BOConfig:
 
 
 class EngineCache:
-    """The cache block of the incremental BO engine: the packed GPHP draws,
-    the factorized ``GPPosterior`` covering the store prefix ``[0, n)`` and
-    the refit-cadence accounting. Factors can always be dropped: they
-    rebuild from ``samples`` without consuming any RNG state. (The service's
-    shared sample pool and factor arena wait with the service, ROADMAP A7.)
+    """The extractable cache block of the incremental BO engine.
+
+    Holds everything a decision reuses between calls: the packed GPHP draws,
+    the factorized ``GPPosterior`` covering the store prefix ``[0, n)``, and
+    the refit-cadence accounting. A standalone ``BOSuggester`` owns a private
+    instance; a ``SelectionService`` (``repro_torch.core.service``) instead
+    hands out instances wired to a shared **GPHP sample pool** (sibling jobs
+    on the same search space adopt each other's draws instead of re-running
+    the chain) and registered in a **factor arena** (an LRU bound on total
+    resident factor memory — eviction calls ``drop_factors``, which is always
+    safe: the factorization rebuilds from ``samples`` without consuming any
+    RNG state, so suggestions are invariant under eviction).
     """
 
-    def __init__(self):
+    def __init__(self, pool=None, arena=None, arena_key=None):
         self.samples: Optional[np.ndarray] = None  # packed (S, 3d+2) draws
         self.post = None  # GPPosterior for the live rows
         self.n = 0  # observations folded into the cadence accounting
         self.obs_since_refit = 0
         self.token: Optional[int] = None  # id() of the store the cache maps
+        self.pool = pool  # GPHPSamplePool shared by sibling jobs (or None)
+        self.pool_version = -1  # pool.version last adopted/published
+        self.arena = arena  # FactorArena bounding factor residency (or None)
+        self.arena_key = arena_key
+        self.store = None  # last bound ObservationStore (arena accounting)
+        self.head_alphas = None  # last shared-factor head alphas (accounting)
 
+    # ------------------------------------------------------------ lifecycle
     def reset(self) -> None:
         self.samples = None
         self.post = None
         self.n = 0
         self.obs_since_refit = 0
         self.token = None
+        self.pool_version = -1
+        self.head_alphas = None
 
     def invalidate_factors(self) -> None:
         """Forget the factorization but keep draws + cadence (store rebind)."""
         self.post = None
         self.token = None
+        self.head_alphas = None
+
+    def drop_factors(self) -> None:
+        """Arena eviction hook: release the O(S·n²) factor blocks plus the
+        cached head alphas. The next decision rebuilds them from ``samples``
+        (RNG-free, deterministic)."""
+        self.post = None
+        self.head_alphas = None
+
+    def factor_nbytes(self) -> int:
+        """Resident bytes of the factor blocks (what the arena budgets): the
+        objective posterior's tensors (x, mask, L, alpha, the GPHPs, L⁻¹ when
+        cached) and the cached multi-head alpha block — the reference's
+        leaves, so both packages evict in the same order."""
+        total = 0
+        stack = [self.post, self.head_alphas]
+        while stack:
+            block = stack.pop()
+            if isinstance(block, torch.Tensor):
+                total += block.numel() * block.element_size()
+            elif isinstance(block, tuple):  # GPPosterior, GPHyperParams
+                stack.extend(block)
+        return total
+
+    def store_nbytes(self) -> int:
+        """Resident bytes of the bound observation store (rows + pending
+        buffers) — the un-evictable floor of the arena's end-to-end budget."""
+        if self.store is None or not hasattr(self.store, "nbytes"):
+            return 0
+        return int(self.store.nbytes())
+
+    def touched(self) -> None:
+        """Mark this cache most-recently-used in its arena (if any)."""
+        if self.arena is not None:
+            self.arena.touch(self.arena_key, self)
+
+    # ----------------------------------------------------------- wire image
+    def snapshot(self, include_factors: bool = False) -> Dict[str, Any]:
+        """Exact wire image of the cache block, in the JAX package's schema
+        (versioned by the enclosing engine snapshot — see
+        ``SelectionService.snapshot_job``).
+
+        ``include_factors=False`` (default) ships only the GPHP draws and the
+        cadence counters: the factor blocks are a deterministic function of
+        draws + observation rows, so a restoring service rebuilds them
+        locally (the replay arena eviction uses). ``include_factors=True``
+        additionally ships the factorized posterior."""
+        from repro_torch.core.gp.serialize import array_to_wire, posterior_to_wire
+
+        return {
+            "samples": array_to_wire(self.samples),
+            "n": self.n,
+            "obs_since_refit": self.obs_since_refit,
+            "pool_version": self.pool_version,
+            "factors": posterior_to_wire(self.post)
+            if include_factors and self.post is not None
+            else None,
+            "inducing_sel": None,
+            "inducing_n0": 0,
+            "head_samples": None,
+            "head_n": 0,
+        }
+
+    def load_snapshot(self, snap: Mapping[str, Any], device=None) -> None:
+        """Install ``snapshot()`` output (this package's or the JAX
+        package's). Pool/arena wiring is left untouched (those belong to the
+        hosting service); factors land on ``device`` if the snapshot shipped
+        them, else rebuild lazily on the next decision."""
+        from repro_torch.core.gp.serialize import array_from_wire, posterior_from_wire
+
+        if snap.get("inducing_sel") is not None or snap.get("head_samples"):
+            raise NotImplementedError(
+                "subset-backend and per-head cache state is not ported yet "
+                "(ROADMAP queue A item 10)"
+            )
+        self.samples = array_from_wire(snap["samples"])
+        self.n = int(snap["n"])
+        self.obs_since_refit = int(snap["obs_since_refit"])
+        self.pool_version = int(snap["pool_version"])
+        factors = snap.get("factors")
+        self.post = (
+            None if factors is None else posterior_from_wire(factors, device)
+        )
+        self.token = None  # factors (if any) bind to whatever store comes next
+        self.head_alphas = None
 
 
 class BOSuggester:
@@ -218,11 +335,14 @@ class BOSuggester:
             (space, config, seed) walk identical decision streams, and the
             same seed gives the JAX package's stream.
         store: optional ``ObservationStore`` to bind now (else ``bind_store``).
+        cache: optional service-owned ``EngineCache`` (else a private one).
         device: where the GP numerics run. ``None`` is the CUDA card (a
             ``RuntimeError`` if none is visible); tests pass ``"cpu"``.
 
     ``state_dict()``/``load_state_dict()`` capture everything *drawn since
     construction*; a JAX ``BOSuggester.state_dict()`` loads unchanged.
+    Factors are never part of the state: they rebuild by an RNG-free replay
+    of the incremental construction (see ``_posterior_for``).
     """
 
     def __init__(
@@ -231,6 +351,7 @@ class BOSuggester:
         config: BOConfig = BOConfig(),
         seed: int = 0,
         store: Optional[ObservationStore] = None,
+        cache: Optional[EngineCache] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -250,13 +371,19 @@ class BOSuggester:
         self._store: Optional[ObservationStore] = store
         if store is not None:
             self._check_multimetric_config(store)
+        # in-service ASHA state (``repro_torch.core.multifidelity``) — set by
+        # the SelectionService when the job declares multi_fidelity. None
+        # (the default) keeps every decision on the single-metric path.
+        self.multi_fidelity_state = None
         # budget ledger (``repro_torch.core.budget``) — attached by the Tuner
-        # when the job declares max_cost or cost_aware. None (the default)
-        # leaves the "budget" key out of state_dict.
+        # or SelectionService when the job declares max_cost or cost_aware.
+        # None (the default) leaves the "budget" key out of state_dict.
         self.budget_ledger = None
         self._wrapper_store: Optional[ObservationStore] = None
         self._wrapper_fps: List[Tuple[float, bytes]] = []
-        self.cache = EngineCache()
+        # the cache block is an object of its own so a SelectionService can
+        # own it (shared GPHP pool + arena-bounded factors) and hand it out.
+        self.cache = cache if cache is not None else EngineCache()
 
     # ------------------------------------------------------------ helpers
     def _tensor(self, arr, dtype=torch.float64) -> torch.Tensor:
@@ -304,6 +431,17 @@ class BOSuggester:
         self._check_multimetric_config(store)
         self._store = store
         self.cache.invalidate_factors()
+
+    def attach_cache(self, cache: EngineCache) -> None:
+        """Swap in a service-owned cache block (pool/arena wired). Any draws
+        already cached privately carry over, so attaching is never a
+        regression for a warm engine."""
+        if cache.samples is None and self.cache.samples is not None:
+            cache.samples = self.cache.samples
+            cache.n = self.cache.n
+            cache.obs_since_refit = self.cache.obs_since_refit
+            cache.token = self.cache.token
+        self.cache = cache
 
     def reset_cache(self) -> None:
         self.cache.reset()
@@ -426,6 +564,18 @@ class BOSuggester:
         if ms is not None and ms.num_metrics > 1:
             # multi-metric jobs branch off *after* the shared cold start
             return self._decide_multi(store, k, pend_np, ms)
+
+        mf = self.multi_fidelity_state
+        if cfg.cost_aware and mf is not None:
+            raise ValueError(
+                "cost_aware jobs do not support multi_fidelity (the rung "
+                "heads already own the extra head slots)"
+            )
+        if mf is not None and mf.num_active_rungs() > 0:
+            # multi-fidelity jobs score (x, r) jointly once rung tables hold
+            # data; with empty tables (or multi_fidelity off) the
+            # single-metric path below is untouched.
+            return self._decide_rungs(store, k, pend_np, mf)
         if cfg.cost_aware:
             costs = store.own_costs()
             n_fin = sum(
@@ -497,6 +647,7 @@ class BOSuggester:
                     pend_buf[n_excl] = vec
                     pend_mask[n_excl] = True
                     n_excl += 1
+        self.cache.touched()  # LRU bump + arena budget enforcement
         return out
 
     def _first_unseen(
@@ -660,6 +811,66 @@ class BOSuggester:
             store, k, pend_np, x_all, post, y_heads, "cost", make_head
         )
 
+    def _decide_rungs(
+        self, store: ObservationStore, k: int, pend_np: np.ndarray, mf
+    ) -> List[Dict[str, Any]]:
+        """One batched decision for a multi-fidelity job whose rung tables
+        hold data: the f(x, r) posterior of ``repro_torch.core.gp.
+        per_resource``.
+
+        The objective head (final/cummin value) drives the single-metric
+        machinery — GPHP chain, cached factor, rank-1 appends, refit
+        cadence — untouched; each active rung adds one alpha solve against
+        that factor per decision plus one matvec inside scoring (the
+        ``"rungs"`` mode of ``acq_score_multi``). Head targets are a pure
+        function of (store rows + keys, rung tables), so every replay
+        invariant (arena eviction, snapshot restore) holds for the rung
+        heads too."""
+        cfg = self.config
+        if cfg.acq.acq != "ei":
+            raise ValueError(
+                "multi-fidelity jobs support acq='ei' only (rung-weighted "
+                f"EI), got {cfg.acq.acq!r}"
+            )
+        n = store.num_observations
+        num_rungs = mf.num_active_rungs()
+
+        x_all, y_std, _, _ = store.standardized()
+        with telemetry.span("suggest.posterior", n=n):
+            post = self._posterior_for(store, x_all, y_std)
+        size = post.x_train.shape[0]
+        y_live = np.zeros(size)
+        y_live[:n] = y_std
+        post = refresh_alpha(post, self._tensor(y_live))
+        self.cache.post = post
+
+        # (R, n) standardized rung-head targets; rows without a rung-k value
+        # impute their final objective (dense columns — no per-head masks).
+        rung_t = rung_head_targets(store, mf.rungs, num_rungs, y_std)
+        y_heads = np.zeros((1 + num_rungs, size))
+        y_heads[0, :n] = y_std
+        y_heads[1:, :n] = rung_t
+        weights = rung_head_weights(mf.rung_grid, num_rungs)  # (1, R+1)
+        # per-head incumbents: each head's EI improves on its own best
+        y_best = float(y_std[:n].min())
+        y_best_w = np.concatenate(([y_best], rung_t.min(axis=1)))
+
+        def make_head(alphas):
+            return MultiMetricHead(
+                alphas=alphas,
+                t_std=self._tensor(np.zeros((0,))),
+                y_best=y_best,
+                has_feasible=True,
+                weights=self._tensor(weights),
+                y_best_w=self._tensor(y_best_w),
+            )
+
+        # a span of its own, so a trace can tell the rung-aware decisions
+        with telemetry.span("suggest.rungs", rungs=num_rungs, k=k):
+            return self._decide_heads(
+                store, k, pend_np, x_all, post, y_heads, "rungs", make_head
+            )
+
     def _decide_heads(
         self, store: ObservationStore, k: int, pend_np: np.ndarray,
         x_all: np.ndarray, post, y_heads: np.ndarray, mode: str,
@@ -686,6 +897,7 @@ class BOSuggester:
         n_excl = 0
         work = post
         head = heads_for(post, y_heads)
+        self.cache.head_alphas = head.alphas  # arena accounting (factor_nbytes)
         yh_work = [list(y_heads[j, :n_live]) for j in range(len(y_heads))]
         if cfg.pending_strategy in ("liar", "kb") and len(pend_np) > 0:
             xb = self._tensor(pend_np)
@@ -728,6 +940,7 @@ class BOSuggester:
                     pend_buf[n_excl] = vec
                     pend_mask[n_excl] = True
                     n_excl += 1
+        self.cache.touched()  # LRU bump + arena budget enforcement
         return out
 
     @staticmethod
@@ -770,13 +983,16 @@ class BOSuggester:
         self, store: ObservationStore, x_all: np.ndarray, y_std: np.ndarray
     ):
         """Return a posterior covering the store's n rows, via (in order of
-        preference) the cached factors + rank-1 appends, a refactorization
-        under cached draws (replaying the appends since the last refit), or
-        a full GPHP refit."""
+        preference) the cached factors + rank-1 appends, pooled sibling GPHP
+        draws (service mode), a refactorization under cached draws
+        (replaying the appends since the last refit), or a full GPHP
+        refit."""
         cfg = self.config
         cache = self.cache
+        pool = cache.pool
         n = x_all.shape[0]
         token = id(store)  # invariant: id-key -- within-process factor-cache identity check only; never serialized, rebuilt per process
+        cache.store = store  # arena end-to-end accounting
 
         samples_valid = (
             cfg.incremental
@@ -791,6 +1007,42 @@ class BOSuggester:
             new_obs > 0 and cache.obs_since_refit + new_obs >= cfg.refit_every
         )
 
+        expected_s = (
+            1 if cfg.gphp_method == "map" else cfg.slice_config.num_kept
+        )
+        if (
+            resample
+            and cfg.incremental
+            and pool is not None
+            and pool.samples is not None
+            and pool.version > cache.pool_version
+            # a sibling fitted with a different GPHP budget: its draw count
+            # would silently replace this job's configured fidelity — only
+            # adopt shape-compatible draws.
+            and pool.samples.shape[0] == expected_s
+        ):
+            # A sibling job published fresher draws since our last sync:
+            # adopt them instead of re-running the chain (the pool-level
+            # cadence: across N sibling jobs roughly one chain runs per
+            # ``refit_every`` *group* observations). Draws are GPHP
+            # posteriors of a sibling's data on the same space, so this is
+            # an approximation; ``ServiceConfig(share_gphp=False)`` keeps
+            # every chain the standalone engine's.
+            cache.samples = np.array(pool.samples)
+            cache.pool_version = pool.version
+            cache.obs_since_refit = 0
+            if self._chain_state is None and pool.chain_state is not None:
+                self._chain_state = np.array(pool.chain_state)
+            pool.adoptions += 1
+            telemetry.count("suggest.gphp.adopt")
+            resample = False
+            post_valid = False  # factors (if any) describe the old draws
+            new_obs = 0  # the adopted draws cover all current rows
+            acct = n  # adoption factorizes at n: the new factor boundary
+
+        if pool is not None:
+            pool.decisions += 1
+
         if resample:
             telemetry.count("suggest.gphp.refit")
             xj, yj, mj = self._pad_rows(x_all, y_std, n)
@@ -798,17 +1050,22 @@ class BOSuggester:
                 samples = self._fit_gphps(xj, yj, mj)  # consumes one RNG key
             cache.samples = np.asarray(samples)
             cache.obs_since_refit = 0
+            if pool is not None:
+                pool.publish(cache.samples, self._chain_state)
+                cache.pool_version = pool.version
             with telemetry.span("suggest.factorize", n=n):
                 post = self._factorize(xj, yj, mj)
                 self._settle()
         elif not post_valid:
-            # Cached draws (restored from a checkpoint, or dropped factors)
-            # but no live factorization. The factors the uninterrupted engine
-            # holds were built by a full factorization at its last refit
+            # Cached draws (restored from a checkpoint or snapshot, adopted
+            # from the pool, or arena-evicted factors) but no live
+            # factorization. The factors the uninterrupted engine holds were
+            # built by a full factorization at its last refit/adoption
             # boundary followed by rank-1 appends — so the rebuild *replays*
             # that exact op sequence instead of refactorizing at n (a size-n
-            # Cholesky differs from factorize(r)+appends in the last bits).
-            # RNG-free.
+            # Cholesky differs from factorize(r)+appends in the last bits,
+            # which would break the bit-equivalence of snapshots and
+            # eviction). RNG-free.
             r = min(n, max(2, acct - cache.obs_since_refit))
             cache.obs_since_refit += new_obs
             xj, yj, mj = self._pad_rows(x_all, y_std, r)
@@ -930,7 +1187,8 @@ class BOSuggester:
 
     # ---------------------------------------------------------------- gphps
     def _fit_gphps(self, xj, yj, mj) -> np.ndarray:
-        """Sample packed GPHPs; returns (S, 3d+2) float64 numpy draws."""
+        """Sample (or, for ``gphp_method="map"``, optimize) packed GPHPs;
+        returns (S, 3d+2) float64 numpy draws (S = 1 for MAP)."""
         cfg = self.config
         d = self.space.encoded_dim
         bounds = self._bounds
@@ -942,7 +1200,12 @@ class BOSuggester:
                 bounds.lower + 1e-4, bounds.upper - 1e-4,
             )
         if cfg.gphp_method == "map":
-            return map_gphps()
+            best = map_gphps(
+                xj, yj, mj, bounds, init, self._next_key(), cfg.eb_config,
+                cfg.fit_backend,
+            )
+            self._chain_state = np.array(best)
+            return best[None, :]
         samples = mcmc_gphps(
             xj, yj, mj, bounds, init, self._next_key(), cfg.slice_config,
             cfg.fit_backend,
@@ -982,8 +1245,8 @@ class BOSuggester:
         """JSON-safe image of everything drawn since construction, in the
         JAX package's schema: slice-chain state, numpy RNG and threefry key,
         Sobol position, cached GPHP draws and refit-cadence counters, and the
-        budget ledger when one is attached. Pair with the construction
-        ``seed`` to rebuild this engine exactly."""
+        multi-fidelity rung tables and budget ledger when they are attached.
+        Pair with the construction ``seed`` to rebuild this engine exactly."""
         state = {
             "chain_state": None
             if self._chain_state is None
@@ -1000,6 +1263,11 @@ class BOSuggester:
             "cached_head_samples": None,
             "cached_head_n": 0,
         }
+        # multi-fidelity rung tables ride the suggester state so the Tuner
+        # checkpoint carries them without a new channel; key absent when MF
+        # is off
+        if self.multi_fidelity_state is not None:
+            state["multi_fidelity"] = self.multi_fidelity_state.snapshot()
         # budget ledger spend rides the same channel as in the reference; key
         # absent when budgets are off
         if self.budget_ledger is not None:
@@ -1013,11 +1281,6 @@ class BOSuggester:
         if state.get("head_chain_states") or state.get("cached_head_samples"):
             raise NotImplementedError(
                 "per-head GPHP state is not ported yet (ROADMAP queue A item 10)"
-            )
-        if state.get("multi_fidelity") is not None:
-            raise NotImplementedError(
-                "multi-fidelity state is not ported yet (ROADMAP queue A "
-                "items 7 and 9)"
             )
         cs = state.get("chain_state")
         self._chain_state = None if cs is None else np.asarray(cs, dtype=np.float64)
@@ -1035,6 +1298,10 @@ class BOSuggester:
         self.cache.obs_since_refit = int(state.get("obs_since_refit", 0))
         self.cache.post = None  # refactorized lazily from cached samples
         self.cache.token = None
+        self.cache.head_alphas = None
+        mf = state.get("multi_fidelity")
+        if mf is not None and self.multi_fidelity_state is not None:
+            self.multi_fidelity_state.load_snapshot(mf)
         bud = state.get("budget")
         if bud is not None and self.budget_ledger is not None:
             self.budget_ledger.load_snapshot(bud)

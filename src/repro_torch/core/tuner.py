@@ -37,10 +37,13 @@ Features implemented per the paper:
   * elasticity: ``max_parallel`` may be changed while running (the slot pool
     grows/shrinks without invalidating tuner or GP state);
   * multi-metric jobs (``TuningJobConfig.metrics``: constrained or Pareto)
-    and budgets (``max_cost``, ``max_wallclock``, cost-aware suggesters).
+    and budgets (``max_cost``, ``max_wallclock``, cost-aware suggesters);
+  * service mode (``service=SelectionService(...)``: shared GPHP pool,
+    factor arena, sibling warm start) and multi-fidelity jobs
+    (``TuningJobConfig.multi_fidelity``: in-service ASHA with per-rung
+    acquisition heads).
 
-Not ported yet, and refused with ``NotImplementedError``: service mode
-(ROADMAP queue A item 7) and multi-fidelity jobs (items 7 and 9).
+The socket replicas of service mode wait (ROADMAP queue A item 11).
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.core.asha import rung_iters
 from repro_torch.core.budget import BudgetLedger
 from repro_torch.core.history import ObservationStore
 from repro_torch.core.multimetric import MetricSet, pareto_mask
@@ -200,13 +204,11 @@ class Tuner:
             folded into the GP dataset once (§5.3).
         callbacks: ``f(tuner, trial)`` hooks invoked at each trial's
             terminal event.
-        service: optional ``SelectionService`` (in-process) or
-            ``repro.distributed.RemoteService`` (engine-replica fleet over
-            sockets). When set, the store and engine cache are service-owned,
-            registration folds sibling warm-start in, and slot refill routes
-            through ``JobHandle.suggest_batch`` — the RPC seam. Both service
-            types produce identical trial tables for identical inputs (the
-            wire protocol is exact; see ``docs/wire_protocol.md``).
+        service: optional ``SelectionService`` (in-process; the socket
+            replicas wait, ROADMAP A11). When set, the store and engine
+            cache are service-owned, registration folds sibling warm-start
+            in, and slot refill routes through ``JobHandle.suggest_batch`` —
+            the RPC seam.
 
     ``run()`` returns a ``TuningResult``; ``save()``/``restore()`` checkpoint
     and resume a job bit-identically (including in remote service mode).
@@ -264,10 +266,7 @@ class Tuner:
                 raise ValueError(
                     "multi_fidelity supports single-metric jobs only"
                 )
-            raise NotImplementedError(
-                "multi-fidelity jobs are not ported yet (ROADMAP queue A items "
-                "7 and 9)"
-            )
+            self._mf_rungs = set(rung_iters(self.multi_fidelity))
         # service mode (paper §3 Fig. 1): decisions route through a shared
         # SelectionService — store/cache are service-owned, siblings on the
         # same space pool GPHP samples and warm-start each other.
@@ -346,9 +345,25 @@ class Tuner:
         tuner's ``warm_start`` so checkpoints capture the sibling parents
         exactly as registered (restore must not re-fold a moved target)."""
         if self.service is not None:
-            raise NotImplementedError(
-                "service mode is not ported yet (ROADMAP queue A item 7)"
+            handle = self.service.register_job(
+                self.config.job_name,
+                self.space,
+                suggester=self.suggester,
+                seed=self.config.seed,
+                warm_start=self.warm_start,
+                fold_siblings=not self._warm_start_restored,
+                metrics=self.metric_set,
+                multi_fidelity=self.multi_fidelity,
+                max_cost=self.config.max_cost,
             )
+            self._service_handle = handle
+            self.suggester = handle.suggester
+            if handle.warm_pool is not None:
+                self.warm_start = handle.warm_pool
+            # the service owns the ledger (the live object) — the tuner
+            # gates launches against it and charges through the handle.
+            self.budget_ledger = getattr(handle, "budget_ledger", None)
+            return handle.store
         store = ObservationStore(
             self.space, warm_start=self.warm_start, metrics=self.metric_set
         )
@@ -360,8 +375,8 @@ class Tuner:
         if self.config.max_cost is not None or cost_aware:
             self.budget_ledger = BudgetLedger(self.config.max_cost)
             if hasattr(self.suggester, "budget_ledger"):
-                # rides BOSuggester.state_dict()["budget"]: checkpoints carry
-                # the spend with no new channel
+                # rides BOSuggester.state_dict()["budget"]: checkpoints and
+                # engine snapshots carry the spend with no new channel
                 self.suggester.budget_ledger = self.budget_ledger
         else:
             self.budget_ledger = None

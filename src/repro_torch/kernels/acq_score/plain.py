@@ -5,7 +5,8 @@ on the same packed inputs: anchors (m, d), train rows (n, d), L⁻¹ (S, n, n),
 α (S, n) — or the head block α (S, M, n) —, mask (n,), per-sample
 inv_ell / a / b / on (S, d) and amp² (S,). Return (S, m). Built from the
 engine's own torch arithmetic (the packed Matérn-5/2 gram, ``acquisition``'s
-EI / LCB and ``multimetric``'s constrained / scalarized EI).
+EI / LCB, ``multimetric``'s constrained / scalarized EI and
+``per_resource``'s rung-weighted EI).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import acquisition as A
+from repro_torch.core.gp.per_resource import rung_weighted_ei
 from repro_torch.core.multimetric.acquisition import constrained_ei, scalarized_ei
 from repro_torch.kernels.matern52.plain import matern52_gram_plain
 
@@ -49,9 +51,7 @@ def multi_closed_form(
     if mode == "pareto":
         return scalarized_ei(mu, var, weights, y_best_w, t_std)
     if mode == "rungs":
-        # Σ_h w_h · EI_h, each head against its own incumbent
-        ei = A.expected_improvement(mu, var[:, None, :], y_best_w[None, :, None])
-        return torch.einsum("h,shm->sm", weights[0], ei)
+        return rung_weighted_ei(mu, var, y_best_w, weights[0])
     # cost: EI on head 0 discounted by exp(−η · mean of the log-cost head)
     return A.expected_improvement(mu[:, 0, :], var, y_best) * torch.exp(
         -weights[0, 0] * mu[:, 1, :]

@@ -188,17 +188,16 @@ def test_unported_options_refuse_clearly():
         T.BOConfig(posterior_backend="subset")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.BOConfig(per_head_gphp=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):  # service mode
-        T.Tuner(space_of(T), objective, None, TSim(), T.TuningJobConfig(),
-                service=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.Tuner(space_of(T), objective, T.RandomSuggester(space_of(T)), TSim(),
-                T.TuningJobConfig(multi_fidelity=object()), service=object())
+    # MAP-II differentiates the gram: the kernel gram has no backward, so the
+    # config refuses before any work instead of falling back to the torch gram
+    with pytest.raises(ValueError, match="no backward"):
+        T.BOConfig(gphp_method="map", fit_backend="kernel")
+    with pytest.raises(ValueError, match="no backward"):
+        bo_config("torch", gphp_method="map", fit_backend="kernel")
     sugg = T.BOSuggester(space_of(T), bo_config("torch", gphp_method="map"),
                          device="cpu")
     ts = space_of(T)
     store = _store(T, ts, [(c, 1.0 + i) for i, c in
                            enumerate(ts.sample(np.random.default_rng(0), 4))])
     sugg.bind_store(store)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sugg.suggest_batch(1)
+    assert len(sugg.suggest_batch(1)) == 1  # the torch gram's MAP fit runs
