@@ -30,7 +30,11 @@ of the JAX package. Phases:
    shrink runs out): kept samples to 1e-9 and equal counts, a differing
    branch passing only as a near-tie of g and its slice level; each chain
    prints the kernel's cluster width W, rounds and points evaluated beside
-   the chain's own counts;
+   the chain's own counts; (i) the subset backend's shapes: the paper's
+   chain timed on 512 and 1024 live rows (f32 gram), held against the
+   plain chain in full at 512 rows and shortened at 1024 (its updates
+   printed), ``matern52_operand`` on 1024 rows and ``matern52_cross`` and
+   ``acq_score`` at the 2048 bucket;
 3. invariance — the same short job twice on the card, anchors scored by the
    fused kernel and by the torch composition; the trial tables must agree;
    then the same for a Pareto job with a constraint (``acq_score_multi``);
@@ -64,6 +68,25 @@ of the JAX package. Phases:
    rung-aware decision, exactly; a trial stopped at a rung; fused and torch
    tables equal); (h) the reference's BO-beats-random quality gate on the
    quadratic table with the kernels on;
+9. large n, per-head chains and the wire (run after phase 8) — at the same
+   engine configuration: (j) a 20-trial job on a store preloaded with
+   100,000 seeded observations, the subset posterior at its defaults
+   (``n_switch`` 2048, ``max_inducing`` 1024), refit every 10
+   observations (2 boundary refits), each decision printed (selection,
+   chain and its NaN counts, spans, peak device memory); ``slice_chain``
+   launches equal the refits, ``acq_score`` scores only the 1024/2048
+   buckets phase 2 held, ``matern52_cross`` once a pending set and interim
+   pick, fused = torch tables; (k) a 24-trial constrained job with
+   ``per_head_gphp`` (2 ``slice_chain`` launches a refit, no
+   ``acq_score_multi`` launch, fused = torch tables); (l) two engine
+   replicas, one a real subprocess on the card (``python -m
+   repro_torch.distributed.engine_server --port 0``, its address read from
+   its first line), one in-process: a 24-trial ``Tuner(service=
+   RemoteService([...]))`` through both, the subprocess SIGKILLed
+   mid-stream, must give an in-process ``SelectionService`` run's trial
+   table bit for bit with no failed attempt; then (j)'s job fails over the
+   same way (a chunked-snapshot restore of its 100,000-row store, then
+   the replay) and must give (j)'s table;
 6. serve path — the LM workload's serving path on recurrentgemma-9b at its
    full published widths and depth (38 layers, 7.48e9 parameters, seeded
    random weights made on the card): first ``flash_attention`` and
@@ -94,14 +117,15 @@ of the JAX package. Phases:
    launches per prefill), then decode after prefill and the torch
    composition's prefill once more with the model computing in float32.
 
-Launch counts are set to 0 just before each job of phases 4, 5 and 8, the
+Launch counts are set to 0 just before each job of phases 4, 5, 8 and 9, the
 serving runs of phases 6 and 7 and the flash-decode path, and read just
 after; each must launch every kernel of its path (jobs: and score only row
 buckets that phase 2 held against the plain version). Prints one line per
 case (with the rate of the resource that bounds it and its share of the
 bound) and each phase's wall time, then a
 JSON line of per-kernel numbers (``launches`` from the kernel's own path,
-``s5_launches`` from each path of phase 8), then as its last line
+``s5_launches`` from each path of phase 8, ``large_n_launches`` from each
+of phase 9), then as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
 any failure — including no visible card.
 """
@@ -1072,6 +1096,370 @@ def section5_phase(np, torch, K, telemetry, space, objective, paper, drive, run_
     return out
 
 
+
+def large_n_phase(np, torch, K, telemetry, space, objective, metric_objective,
+                  constrained, paper, card, checked_buckets, big_chain) -> dict:
+    """Phase 9, the rest of the engine on the card, at the paper's engine
+    configuration: (j) the large-n job — a store preloaded with 100,000
+    seeded observations, the subset posterior backend at its defaults
+    (n_switch 2048, max_inducing 1024), 4 slots under the constant liar, two
+    boundary refits — with per-decision breakdowns; (k) a constrained job
+    with a GPHP chain and a factor per head (``per_head_gphp``); (l) the
+    wire: one engine replica a real subprocess on the card
+    (``python -m repro_torch.distributed.engine_server --port 0``), one
+    in-process, a 24-trial ``Tuner(service=RemoteService(...))`` through
+    both with the subprocess SIGKILLed mid-stream, then (j)'s job failing
+    over the same way (a chunked-snapshot restore of its 100,000-row store,
+    then the replay). Returns each path's launch counts, by kernel."""
+    import signal
+    import threading
+
+    from repro_torch.core import (
+        BOConfig, BOSuggester, SelectionService, ServiceConfig, Tuner,
+        TuningJobConfig, WarmStartPool,
+    )
+    from repro_torch.core.scheduler import SimBackend
+    from repro_torch.distributed import EngineServer, RemoteService
+    from repro_torch.kernels.acq_score import ops as acq_ops
+
+    print(f"phase 9 on {card}", flush=True)
+    dev = torch.device("cuda")
+    out = {}
+    procs = []
+
+    def table_of(res):
+        return np.stack([space.encode(t.config) for t in res.trials])
+
+    def full_table(res):
+        return [(t.trial_id, t.config, str(t.state), t.objective, t.attempts)
+                for t in res.trials]
+
+    def spawn_replica(*flags):
+        """An engine replica as a real subprocess on the card; its address
+        is read from the first line it prints."""
+        env = dict(os.environ)
+        env.pop("REPRO_TELEMETRY", None)
+        env["PYTHONPATH"] = os.pathsep.join(
+            p for p in (os.path.join(HERE, "src"), env.get("PYTHONPATH", "")) if p)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.distributed.engine_server", "--port", "0",
+             *flags],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=HERE)
+        procs.append(proc)
+        return proc
+
+    def replica_address(proc):
+        banner = proc.stdout.readline()
+        if "listening on" not in banner:
+            fail(f"engine replica subprocess did not start: {banner!r}")
+        print(f"  replica subprocess {proc.pid}: {banner.strip()}", flush=True)
+        # keep its pipe drained so the replica never blocks on a full pipe
+        threading.Thread(target=proc.stdout.read, daemon=True).start()
+        host, port = banner.split("listening on", 1)[1].split()[0].rsplit(":", 1)
+        return (host, int(port))
+
+    def appended_rows(spans):
+        """Store rows folded into a factor by rank-1 appends — new rows and
+        the replay of a rebuild, per factor (the objective's, each head's):
+        one ``matern52_cross`` launch each."""
+        total = 0
+        for e in spans:
+            a = e["attrs"]
+            if e["name"] == "suggest.rank1_append":
+                total += a["new"]
+            elif e["name"] == "suggest.factor_rebuild" and "heads" not in a:
+                total += a["n"] - a["boundary"]
+            elif e["name"] == "suggest.head_append":
+                total += a["new"] * a["heads"]
+            elif e["name"] == "suggest.head_rebuild":
+                total += (a["n"] - a["boundary"]) * a["heads"]
+        return total
+
+    def kill_after(proc, after, killed):
+        def callback(tuner, trial):
+            done = sum(1 for t in tuner.trials.values() if t.is_terminal)
+            if done == after and proc.poll() is None:
+                proc.send_signal(signal.SIGKILL)
+                proc.wait()
+                killed.append(done)
+        return callback
+
+    # the row buckets every acq_score launch scores (its factor's rows)
+    scored = []
+    real_acq = acq_ops.acq_score
+
+    def counting_acq(post, *args, **kwargs):
+        scored.append(int(post.x_train.shape[0]))
+        return real_acq(post, *args, **kwargs)
+
+    # both replica subprocesses start now; they reach the card while (j)
+    # and (k) run. A boundary decision of the large job (selection and a
+    # 1024-row chain) outlasts the default 30 s lease, so its replicas
+    # lease for LARGE_TTL.
+    LARGE_TTL = 120.0
+    proc_a, proc_b = spawn_replica(), spawn_replica("--lease-ttl", str(LARGE_TTL))
+    try:
+        # ------------------------------------------------- (j) large n
+        N_STORE, TRIALS, SLOTS, REFIT = 100_000, 20, 4, 10
+        t0 = time.perf_counter()
+        srng = np.random.default_rng(2022)
+        fleet = []
+        for u in srng.random((N_STORE, space.encoded_dim)):
+            c = space.decode(u)
+            fleet.append((c, float(objective(c)[0][-1])))
+        print(f"(j) store: {N_STORE} seeded observations ({N_STORE * space.encoded_dim * 8 / 1e6:.1f}"
+              f" MB of encoded rows) made in {time.perf_counter() - t0:.1f} s; refit_every "
+              f"{REFIT}: the first decision's boundary (n = {N_STORE}) and the one after "
+              f"{REFIT} own observations, 2 boundary refits in {TRIALS} trials", flush=True)
+        large_cfg = {
+            b: BOConfig(**{**paper, "backend": b, "posterior_backend": "subset",
+                           "refit_every": REFIT})
+            for b in ("kernel", "torch")
+        }
+
+        def large_tuner(service, callbacks=()):
+            pool = WarmStartPool()
+            pool.add_parent(fleet, name="fleet")
+            return Tuner(space, objective, None, SimBackend(), TuningJobConfig(
+                max_trials=TRIALS, max_parallel=SLOTS, job_name="large", seed=0),
+                warm_start=pool, service=service, callbacks=callbacks)
+
+        def large_run(backend):
+            svc = SelectionService(ServiceConfig(
+                default_bo_config=large_cfg[backend], sibling_warm_start=False), device=dev)
+            tuner = large_tuner(svc)
+            handle = tuner._service_handle
+            inner = handle.suggest_batch
+            peaks_mib = []
+
+            def measured(k):
+                torch.cuda.reset_peak_memory_stats(dev)
+                got = inner(k)
+                torch.cuda.synchronize(dev)
+                peaks_mib.append(torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+                return got
+
+            handle.suggest_batch = measured
+            telemetry.get().reset()
+            telemetry.set_enabled(True)
+            K.reset_launch_counts()
+            scored.clear()
+            acq_ops.acq_score = counting_acq
+            t0 = time.perf_counter()
+            try:
+                res = tuner.run()
+                torch.cuda.synchronize()
+            finally:
+                acq_ops.acq_score = real_acq
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            events = telemetry.get().trace_events()
+            telemetry.set_enabled(False)
+            return tuner, res, launches, events, peaks_mib, wall, list(scored)
+
+        tuner, res, launches, events, peaks_mib, wall, buckets = large_run("kernel")
+        done = res.trials
+        if len(done) != TRIALS or any(t.state != "COMPLETED" for t in done):
+            fail(f"(j) large n: {len(done)} trials, not {TRIALS} completed")
+        cache = tuner.suggester.cache
+        if cache.inducing_sel is None or len(cache.inducing_sel) != 1024:
+            fail("(j) large n: the subset backend is not live with 1024 inducing rows")
+        spans = [e for e in events if e.get("kind") == "span"]
+        by_id = {e["span_id"]: e for e in spans}
+
+        def decision_of(ev):
+            up = by_id.get(ev["parent_id"])
+            while up is not None and up["name"] != "suggest.decide":
+                up = by_id.get(up["parent_id"])
+            return None if up is None else up["span_id"]
+
+        decides = sorted((e for e in spans if e["name"] == "suggest.decide"),
+                         key=lambda e: e["t0"])
+        parts = {e["span_id"]: {} for e in decides}
+        chains = {}
+        for ev in events:
+            did = decision_of(ev)
+            if did is None:
+                continue
+            if ev.get("kind") == "span":
+                parts[did][ev["name"]] = parts[did].get(ev["name"], 0.0) + ev["dur"] * 1e3
+            elif ev["name"] == "gphp.slice_chain":
+                chains.setdefault(did, []).append(ev["attrs"])
+        names = ("suggest.select_inducing", "suggest.gphp_fit", "suggest.factorize",
+                 "suggest.factor_rebuild", "suggest.rank1_append", "suggest.acq_opt")
+        if len(peaks_mib) != len(decides):
+            fail(f"(j) large n: {len(peaks_mib)} measured decisions for {len(decides)} spans")
+        for i, e in enumerate(decides):
+            a, p = e["attrs"], parts[e["span_id"]]
+            chain_text = "; ".join(
+                f"chain {c['evaluations']} evaluations, NaN factors {c['nan_factors']}, "
+                f"exhausted shrinks {c['exhausted']}, rounds {c['rounds']}, rows {c['rows']}"
+                for c in chains.get(e["span_id"], ())) or "no refit"
+            print(f"  (j) decision {i}: n={a['n']} k={a['k']} pending={a['pending']}: "
+                  f"{e['dur'] * 1e3:.2f} ms; " + ", ".join(
+                      f"{k.split('.', 1)[1]} {p.get(k, 0.0):.2f} ms" for k in names)
+                  + f"; {chain_text}; peak device memory {peaks_mib[i]:.0f} MiB", flush=True)
+        total = sum(e["dur"] for e in decides) * 1e3
+        share = {k: sum(parts[e["span_id"]].get(k, 0.0) for e in decides) for k in names}
+        print(f"(j) large n: {TRIALS} trials, {len(decides)} GP decisions in {wall:.1f} s "
+              f"(engine {total:.1f} ms); shares of engine time: " + ", ".join(
+                  f"{k.split('.', 1)[1]} {v / total:.1%}" for k, v in share.items())
+              + f"; decision p50 {statistics.median(e['dur'] * 1e3 for e in decides):.2f} ms;"
+              f" best {res.best_objective:.6f}; phase 2's paper chain: "
+              + ", ".join(f"{n} rows {ms:.1f} ms" for n, ms in big_chain.items())
+              + f"; {card}", flush=True)
+        refits = sum(1 for e in spans if e["name"] == "suggest.gphp_fit")
+        n_chains = sum(len(v) for v in chains.values())
+        if refits != 2 or launches["slice_chain"] != refits or n_chains != refits:
+            fail(f"(j) large n: {launches['slice_chain']} slice_chain launches and "
+                 f"{n_chains} chains for {refits} refits (2 expected)")
+        factorized = sum(1 for e in spans if e["name"] in ("suggest.factorize",
+                                                           "suggest.factor_rebuild"))
+        if launches["matern52_operand"] != factorized:
+            fail(f"(j) large n: {launches['matern52_operand']} matern52_operand launches "
+                 f"for {factorized} factorizations")
+        picks = sum(e["attrs"]["k"] - 1 for e in decides)
+        with_pending = sum(e["attrs"]["pending"] > 0 for e in decides)
+        appended = appended_rows(spans)
+        print(f"  (j) matern52_cross: {launches['matern52_cross']} launches for "
+              f"{with_pending} pending sets, {picks} interim picks and {appended} store "
+              f"rows appended", flush=True)
+        if launches["matern52_cross"] != with_pending + picks + appended:
+            fail(f"(j) large n: {launches['matern52_cross']} matern52_cross launches, not "
+                 f"one a pending set, interim pick and appended row "
+                 f"({with_pending + picks + appended})")
+        seen = sorted(set(buckets))
+        print(f"  (j) launches {launches}; acq_score row buckets {seen} "
+              f"({len(buckets)} launches; held in phase 2: "
+              f"{sorted(checked_buckets['acq_score'])})", flush=True)
+        if not set(seen) <= checked_buckets["acq_score"] or not set(seen) <= {1024, 2048}:
+            fail(f"(j) large n: acq_score scored buckets {seen}")
+        if launches["acq_score"] != len(buckets) or not buckets:
+            fail("(j) large n: acq_score launches and scored factors disagree")
+        out["j"] = launches
+        large_ref = res
+        _, res_t, _, _, _, wall_t, _ = large_run("torch")
+        got, want = table_of(res), table_of(res_t)
+        diff = float(np.abs(got - want).max()) if got.shape == want.shape else math.inf
+        print(f"  (j) kernel vs torch scoring: trial tables max |Δ| {diff:.3e} (tol 1e-9); "
+              f"torch-scored run {wall_t:.1f} s", flush=True)
+        if diff > 1e-9:
+            fail("(j) large n: the trial table moves with the scoring backend")
+
+        # ------------------------------------------- (k) per-head chains
+        def per_head(backend):
+            cfg = BOConfig(**{**paper, "backend": backend, "per_head_gphp": True})
+            telemetry.get().reset()
+            telemetry.set_enabled(True)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = Tuner(space, metric_objective, BOSuggester(space, cfg, seed=0), SimBackend(),
+                        TuningJobConfig(max_trials=24, max_parallel=4,
+                                        metrics=constrained)).run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            spans = [ev for ev in telemetry.get().trace_events() if ev.get("kind") == "span"]
+            telemetry.set_enabled(False)
+            return res, launches, spans, wall
+
+        res, launches, spans, wall = per_head("kernel")
+        count = {}
+        for ev in spans:
+            count[ev["name"]] = count.get(ev["name"], 0) + 1
+        attrs = [ev["attrs"] for ev in spans if ev["name"] == "suggest.decide"]
+        gp_ms = [ev["dur"] * 1e3 for ev in spans
+                 if ev["name"] == "suggest.decide" and ev["attrs"]["n"] >= 3]
+        refits, head_fits = count.get("suggest.gphp_fit", 0), count.get("suggest.head_gphp_fit", 0)
+        gp = [a for a in attrs if a["n"] >= 3]
+        picks = sum(a["k"] - 1 for a in gp)
+        with_pending = sum(a["pending"] > 0 for a in gp)
+        factorized = sum(count.get(k, 0) for k in (
+            "suggest.factorize", "suggest.factor_rebuild", "suggest.head_factorize",
+            "suggest.head_rebuild"))
+        print(f"(k) per-head constrained: 24 trials in {wall:.1f} s, {count.get('suggest.posterior', 0)}"
+              f" GP decisions (p50 {statistics.median(gp_ms):.2f} ms), {refits} refits, "
+              f"{head_fits} head refits; launches {launches};"
+              f" best {res.best_objective:.6f}; {card}", flush=True)
+        if not refits or head_fits != refits or launches["slice_chain"] != 2 * refits:
+            fail(f"(k) per-head: {launches['slice_chain']} slice_chain launches for "
+                 f"{refits} refits (2 a refit expected)")
+        if launches["acq_score_multi"] != 0 or launches["acq_score"] != 0:
+            fail("(k) per-head: a fused scoring kernel ran; per-head scoring is the "
+                 "torch composition")
+        if launches["matern52_operand"] != factorized:
+            fail(f"(k) per-head: {launches['matern52_operand']} matern52_operand launches "
+                 f"for {factorized} factorizations")
+        want_cross = 2 * (with_pending + picks) + appended_rows(spans)
+        if launches["matern52_cross"] != want_cross:
+            fail(f"(k) per-head: {launches['matern52_cross']} matern52_cross launches, not "
+                 f"one a pending set, interim pick and appended row per factor "
+                 f"({want_cross})")
+        out["k"] = launches
+        res_t, _, _, _ = per_head("torch")
+        diff = float(np.abs(table_of(res) - table_of(res_t)).max())
+        print(f"  (k) kernel vs torch scoring: max |Δ| {diff:.3e} (tol 1e-9)", flush=True)
+        if diff > 1e-9:
+            fail("(k) per-head: the trial table moves with the scoring backend")
+
+        # ------------------------------------------------------ (l) wire
+        small_cfg = BOConfig(**paper)
+
+        def small_tuner(service, callbacks=()):
+            return Tuner(space, objective, None, SimBackend(), TuningJobConfig(
+                max_trials=24, max_parallel=4, job_name="wire", seed=7),
+                service=service, callbacks=callbacks)
+
+        ref = small_tuner(SelectionService(ServiceConfig(default_bo_config=small_cfg),
+                                           device=dev)).run()
+        addr_a, addr_b = replica_address(proc_a), replica_address(proc_b)
+
+        def over_the_wire(label, proc, addr, make_tuner, cfg, after, want, ttl=30.0,
+                          **rs_kw):
+            local = EngineServer(lease_ttl=ttl).start()
+            killed = []
+            telemetry.get().reset()
+            telemetry.set_enabled(True)
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            try:
+                res = make_tuner(RemoteService([addr, local.address], bo_config=cfg, **rs_kw),
+                                 callbacks=[kill_after(proc, after, killed)]).run()
+                torch.cuda.synchronize()
+            finally:
+                local.shutdown()
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+            counters = telemetry.get().metrics()["counters"]
+            telemetry.set_enabled(False)
+            same = full_table(res) == full_table(want)
+            print(f"(l) {label}: {len(res.trials)} trials in {wall:.1f} s, subprocess "
+                  f"replica SIGKILLed after {killed} terminal trials; failovers "
+                  f"{counters.get('client.failover', 0)}, re-adoptions "
+                  f"{counters.get('client.readopt', 0)}, replayed ops "
+                  f"{counters.get('client.oplog.replayed_ops', 0)}; failed attempts "
+                  f"{res.num_failed_attempts}; trial table equal to the in-process run: "
+                  f"{same}; in-process replica launches {launches}; {card}", flush=True)
+            if not killed:
+                fail(f"(l) {label}: the replica was never killed")
+            if not same or res.num_failed_attempts != 0 or any(t.attempts != 1 for t in res.trials):
+                fail(f"(l) {label}: the stream after failover differs from the in-process run")
+            return launches
+
+        out["l"] = over_the_wire("24-trial job", proc_a, addr_a, small_tuner, small_cfg, 8, ref,
+                                 snapshot_every=4)
+        launches = over_the_wire(
+            "large-n job (100,000-row store)", proc_b, addr_b, large_tuner,
+            large_cfg["kernel"], 13, large_ref, ttl=LARGE_TTL, snapshot_every=16,
+            snapshot_frame_bytes=1 << 20)
+        out["l"] = {k: out["l"][k] + launches[k] for k in launches}
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    return out
+
 def main() -> None:
     try:
         import numpy as np
@@ -1168,7 +1556,7 @@ def main() -> None:
     )
     from repro_torch.core import prng, telemetry
     from repro_torch.core.gp.slice_sampler import (
-        FAST_CONFIG, PAPER_CONFIG, chain_draws, keep_rows,
+        FAST_CONFIG, PAPER_CONFIG, SliceSamplerConfig, chain_draws, keep_rows,
     )
     from repro_torch.core.history import bucket_size
     from repro_torch.core.optimize_acq import AcqOptConfig
@@ -1295,7 +1683,10 @@ def main() -> None:
     S = 10
     cases = ([(d, n, n, 1024) for d in (6, 20) for n in (64, 256, 1024)]
              + [(6, 5, 8, 1024), (6, 13, 16, 1024), (6, 27, 32, 1024), (6, 50, 64, 1024)]
-             + [(6, 2048, 2048, 1024), (6, 64, 64, 8)])
+             + [(6, 2048, 2048, 1024), (6, 64, 64, 8)]
+             # the subset backend's factor (phase 9 (j)): 1024 inducing rows
+             # plus appends and fantasies, in the 2048 bucket
+             + [(6, 1030, 2048, 1024)])
     # row buckets held against the plain version, per scoring kernel; each
     # job of phases 4–5 must stay within its kernel's
     checked_buckets = {"acq_score": {n for _, _, n, _ in cases}}
@@ -1462,7 +1853,9 @@ def main() -> None:
     table = torch.as_tensor(packed).to(dev)
     params = P.GPHyperParams.unpack(table, d)
     fold_cases = ((5, 8), (7, 8), (13, 16), (29, 32), (60, 64))
-    for live, n in fold_cases + ((1021, 1024),):
+    # (1027, 2048): the subset job's appends against 1024 inducing rows plus
+    # the appends since the boundary, in the 2048 bucket (phase 9 (j))
+    for live, n in fold_cases + ((1021, 1024), (1027, 2048)):
         x_np = np.zeros((n, d))
         x_np[:live] = rng.random((live, d))
         xt = torch.as_tensor(x_np).to(dev)
@@ -1504,7 +1897,8 @@ def main() -> None:
     # factorize and at 1024. Work: the gram in float32 (live block), the
     # epilogue in float64 (5 operations an entry).
     jitter = G._JITTER
-    for live, n in ((5, 8), (13, 16), (29, 32), (60, 64), (1021, 1024)):
+    # (1024, 1024): the subset backend's factorize, 1024 inducing rows
+    for live, n in ((5, 8), (13, 16), (29, 32), (60, 64), (1021, 1024), (1024, 1024)):
         x_np = np.zeros((n, d))
         x_np[:live] = rng.random((live, d))
         xt = torch.as_tensor(x_np).to(dev)
@@ -1594,8 +1988,12 @@ def main() -> None:
                        chain_bounds.lower + 1e-4, chain_bounds.upper - 1e-4)
     crng = np.random.default_rng(16)
     ties = 0
+    # the 1024-row chain held against the plain chain: this many updates
+    BIG_SHORT = SliceSamplerConfig(num_samples=40, burn_in=30, thin=1)
+    big_chain = {}  # n -> ms of the paper chain (phase 9 prints it beside its own)
 
-    def chain_case(label, x_np, y_np, live, z0, key, gram, main_shape=False):
+    def chain_case(label, x_np, y_np, live, z0, key, gram, main_shape=False,
+                   chain_cfg=chain_cfg):
         nonlocal ties
         n = x_np.shape[0]
         draws = chain_draws(key, dim, chain_cfg)
@@ -1693,7 +2091,56 @@ def main() -> None:
     if int(ck[2]) != chain_cfg.num_samples:
         fail(f"slice_chain indefinite case: {int(ck[2])} exhausted shrinks, not "
              f"{chain_cfg.num_samples}")
-    n_chains = 2 * len(chain_cases) + 1
+    # (i) the subset backend's shapes (phase 9): the paper's chain on 512
+    # and 1024 live rows (the default max_inducing) with the f32 gram, the
+    # factor in each block's global workspace. Each is timed once, with
+    # its cluster width W, rounds and evaluations; the 512-row chain is
+    # then held against the plain chain in full (chain_case), the 1024-row
+    # one on a chain shortened to BIG_SHORT's updates (the host chain makes
+    # one cuSOLVER factorization and one read-back an evaluation).
+    for n in (512, 1024):
+        configs = [space.decode(u) for u in crng.random((n, d))]
+        x_np = np.stack([space.encode(c) for c in configs])
+        y_live = np.array([objective(c)[0][-1] for c in configs])
+        y_np = (y_live - y_live.mean()) / y_live.std()
+        xt, yt = torch.as_tensor(x_np).to(dev), torch.as_tensor(y_np).to(dev)
+        mt = torch.ones(n, dtype=torch.bool, device=dev)
+        draws = chain_draws(prng.PRNGKey(n), dim, chain_cfg)
+        table = torch.as_tensor(pack_table(chain_bounds, chain_z0, draws)).to(dev)
+        ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        ev0.record()
+        kept_k, counts_k, _, sched = slice_chain_kernel(xt, yt, mt, table, chain_cfg,
+                                                        torch.float32, schedule=True)
+        ev1.record()
+        torch.cuda.synchronize()
+        k_ms = ev0.elapsed_time(ev1)
+        ck = counts_k.cpu().numpy()
+        made, rounds, width = (int(v) for v in sched.cpu().numpy())
+        if not torch.isfinite(kept_k).all():
+            fail(f"slice_chain n={n}: kept samples not finite")
+        boxed = float(ck[3])
+        flops = {"f32": boxed * (n * (n + 1) // 2 * (3 * d + 10) + 12 * n * d),
+                 "f64": boxed * (n ** 3 / 3 + n * n)}
+        nbytes = 8 * (n * d + n) + n + 8 * table.numel() + 8 * (kept_k.numel() + 4)
+        b_ms, b_by = bound_ms(nbytes, flops, peaks)
+        w_ms = sum(f / (peaks[u] / sms * width) for u, f in flops.items()) * 1e3
+        big_chain[n] = k_ms
+        print(f"slice_chain f32 T={chain_cfg.num_samples} n={n} live={n} d={d} (paper "
+              f"chain, subset shape): kernel_ms {k_ms:.3f} ({k_ms / rounds * 1e3:.3f} us a "
+              f"round); evaluations {int(ck[0])}, NaN factors {int(ck[1])}, exhausted "
+              f"shrinks {int(ck[2])}, in the box {int(ck[3])}; W {width}, rounds {rounds} "
+              f"({rounds / chain_cfg.num_samples:.2f} an update), points evaluated {made}; "
+              f"bound_ms {b_ms:.6f} ({b_by}, {b_ms / k_ms:.4%} of bound) {width}-SM bound "
+              f"{w_ms:.5f} ms; {card}", flush=True)
+        held_cfg = chain_cfg if n == 512 else BIG_SHORT
+        t0 = time.perf_counter()
+        chain_case(f"slice_chain f32 T={held_cfg.num_samples} n={n} live={n} d={d} "
+                   f"against plain ({held_cfg.num_samples} updates)", x_np, y_np, n,
+                   chain_z0, prng.PRNGKey(n + 1), torch.float32, chain_cfg=held_cfg)
+        print(f"  held against the plain chain with {held_cfg.num_samples} updates in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    n_chains = 2 * len(chain_cases) + 3
     print(f"slice_chain: {ties} of {n_chains} chains ended on a near-tie "
           f"(at most {CHAIN_MAX_TIES})", flush=True)
     if ties > CHAIN_MAX_TIES:
@@ -1987,6 +2434,13 @@ def main() -> None:
         np, torch, K, telemetry, space, objective, paper, drive, run_job, card)
     phase_done("8 §5 paths", t_phase)
 
+    # 9. the rest of the engine: large n, per-head chains, the wire
+    t_phase = time.perf_counter()
+    large_launches = large_n_phase(
+        np, torch, K, telemetry, space, objective, metric_objective, CONSTRAINED,
+        paper, card, checked_buckets, big_chain)
+    phase_done("9 large n, per-head chains and the wire", t_phase)
+
     # 6. the LM serving path
     t_phase = time.perf_counter()
     serve_launches, decode_launches = serve_phase(torch, np, K, check, peaks, dev)
@@ -2013,6 +2467,8 @@ def main() -> None:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "s5_launches": {path: counts[kname] for path, counts in s5_launches.items()},
+            "large_n_launches": {path: counts[kname]
+                                 for path, counts in large_launches.items()},
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,8 +31,11 @@ negated values.
 acquisitions (constrained EI, random-scalarization EI, rung-weighted EI and
 EI-per-unit-cost) over the shared-factor posterior: the anchor sweep and the
 final re-rank through the fused ``acq_score_multi`` kernel, the refinement
-through the torch composition. The per-head-posterior layout of the
-reference (``per_head_gphp``) is not ported (ROADMAP queue A item 10).
+through the torch composition. In the per-head layout (``per_head_gphp``:
+one GPHP chain and one factor per head) every head predicts through its own
+factor, so the variances differ by head and the shared-variance kernel does
+not apply: the anchor sweep and the refinement both go through the torch
+composition there, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 from repro_torch.core import acquisition as A
 from repro_torch.core import prng
 from repro_torch.core.gp.gp import GPPosterior, predict
+from repro_torch.core.multimetric.acquisition import constrained_ei, scalarized_ei
 
 __all__ = [
     "AcqOptConfig",
@@ -202,8 +206,14 @@ class MultiMetricHead(NamedTuple):
 
     ``weights``/``y_best_w`` are the random-scalarization draws of Pareto
     mode (empty, W=0, in constrained mode); ``y_best``/``has_feasible``
-    drive constrained EI and are ignored in Pareto mode. ``head_posts`` must
-    stay empty: the per-head-posterior layout is not ported.
+    drive constrained EI and are ignored in Pareto mode.
+
+    ``head_posts`` is empty in the default shared-factor layout. With
+    ``BOConfig.per_head_gphp`` it carries one ``GPPosterior`` per extra head
+    (head 1 first), each fitted under its own GPHP chain; the scorer then
+    predicts every head through its own factor (per-head variances) instead
+    of the shared-factor alpha block, and ``alphas`` degenerates to the
+    objective column.
 
     The scoring mode is passed beside the head: ``"constrained"`` and
     ``"pareto"`` as above; ``"rungs"`` is the multi-fidelity f(x, r)
@@ -218,7 +228,7 @@ class MultiMetricHead(NamedTuple):
     has_feasible: bool  # a feasible incumbent exists
     weights: torch.Tensor  # (W, K) simplex scalarization draws
     y_best_w: torch.Tensor  # (W,) best observed scalarized value per draw
-    head_posts: tuple = ()  # per-head posteriors (per_head_gphp, not ported)
+    head_posts: tuple = ()  # per-head GPPosteriors (per_head_gphp only)
 
 
 def _acq_values_multi(
@@ -232,16 +242,33 @@ def _acq_values_multi(
 ) -> torch.Tensor:
     """Integrated multi-metric acquisition at x: (m, d) → (m,). The fused
     multi-head kernel serves the dense anchor sweep; gradient refinement
-    always goes through the torch composition (autograd)."""
+    always goes through the torch composition (autograd), and so does every
+    score of the per-head layout."""
     from repro_torch.kernels.acq_score.ops import acq_score_multi
 
-    if head.head_posts:
-        raise NotImplementedError(
-            "per-head posteriors (per_head_gphp) are not ported yet "
-            "(ROADMAP queue A item 10)"
-        )
     if cfg.backend not in ("kernel", "torch"):
         raise ValueError(f"unknown acquisition backend {cfg.backend!r}")
+    if head.head_posts:
+        # per-head layout (BOConfig.per_head_gphp): every head predicts
+        # through its own factor, so the variances are per head and the
+        # fused shared-variance kernel does not apply
+        mu0, var0 = predict(post, x, backend="torch")
+        mus, vrs = [mu0], [var0]
+        for hp in head.head_posts:
+            muh, varh = predict(hp, x, backend="torch")
+            mus.append(muh)
+            vrs.append(varh)
+        mu = torch.stack(mus, dim=1)  # (S, M, m)
+        var = torch.stack(vrs, dim=1)  # (S, M, m) per-head variances
+        if mode == "constrained":
+            vals = constrained_ei(
+                mu, var, head.y_best, head.t_std, head.has_feasible
+            )
+        else:
+            vals = scalarized_ei(
+                mu, var, head.weights, head.y_best_w, head.t_std
+            )
+        return A.integrate_over_samples(vals)
     backend = "torch" if differentiable else cfg.backend
     vals = acq_score_multi(post, head, x, mode=mode, backend=backend)
     return A.integrate_over_samples(vals)

@@ -45,8 +45,10 @@ slot refill goes through ``JobHandle.suggest_batch`` — the RPC seam.
 versioned engine snapshots (store + GPHP draws + cadence + pool, with the
 O(S·n²) factor blocks optional because a restoring service rebuilds them
 locally), in the JAX package's schema (``repro_torch.core.rpc``): a snapshot
-taken by either package restores in the other. The socket replicas that
-carry the seam across processes wait (ROADMAP queue A item 11).
+taken by either package restores in the other. The cross-process
+deployment of the seam lives in ``repro_torch.core.rpc`` (the versioned
+wire protocol) and ``repro_torch.distributed.engine_server`` /
+``engine_client`` (socket replicas with leases).
 
 Suggesters the service creates run on the service's ``device`` (``None``:
 the CUDA card; tests pass ``"cpu"``).
@@ -285,8 +287,10 @@ class _SpaceGroup:
 class JobHandle:
     """A registered job's view of the service: its store, its suggester, and
     the ``suggest_batch`` entry point — the RPC seam. In-process callers hold
-    this object directly (a remote handle with the same surface waits with
-    the socket replicas, ROADMAP A11).
+    this object directly; in remote mode the same surface is served by
+    ``repro_torch.distributed.engine_client.RemoteJobHandle``, which speaks
+    ``repro_torch.core.rpc`` to an engine replica hosting the real
+    ``JobHandle``.
 
     Attributes:
         name: the job's registered name (``TuningJobConfig.job_name``).

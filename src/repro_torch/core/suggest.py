@@ -48,8 +48,16 @@ engine's device at the GP boundary. The device is the suggester's
 draws follow the JAX package's threefry key stream (``core/prng.py``), so
 the engine makes the reference's decisions and loads its ``state_dict``.
 
-Not ported yet, and refused with ``NotImplementedError``: the subset
-posterior backend and per-head GPHP chains (ROADMAP queue A item 10).
+Large stores (``BOConfig.posterior_backend="subset"``): once a refit
+boundary reaches ``n_switch`` rows, the factor covers only the
+``max_inducing`` rows that ``core/gp/sparse.py::select_inducing`` picks
+over the store prefix (plus the rows appended since), so the factor stays
+O(S·m²) however long the store grows. Factor row i is then
+``EngineCache.live_rows(n)[i]``, not store row i: targets, appends and the
+pending set's cross rows all go through the live rows. Multi-metric jobs
+may give every extra head its own GPHP chain and factor
+(``BOConfig.per_head_gphp``); their scores then go through the torch
+composition, per-head variances being outside the fused kernel's layout.
 """
 
 from __future__ import annotations
@@ -89,6 +97,7 @@ from repro_torch.core.gp.slice_sampler import (
     PAPER_CONFIG,
     SliceSamplerConfig,
 )
+from repro_torch.core.gp.sparse import select_inducing
 from repro_torch.core.history import ObservationStore, bucket_size
 from repro_torch.core.optimize_acq import (
     AcqOptConfig,
@@ -146,8 +155,16 @@ class BOConfig:
     num_scalarizations: int = 16  # Pareto mode: simplex weight draws/decision
     fantasy_block: bool = False  # fold the pending set with one rank-k
     # blocked append instead of k rank-1 borders ("liar" strategy only)
-    posterior_backend: str = "exact"  # "subset" waits (ROADMAP A10)
-    per_head_gphp: bool = False  # waits (ROADMAP A10)
+    posterior_backend: str = "exact"  # "exact" | "subset" (inducing rows,
+    # core/gp/sparse.py) — "subset" caps the factor at max_inducing rows
+    # once the refit boundary reaches n_switch; below that it is the exact
+    # backend bit for bit
+    n_switch: int = 2048  # store rows at a refit boundary before "subset"
+    # actually switches away from the exact factorization
+    max_inducing: int = 1024  # inducing rows selected at each refit boundary
+    per_head_gphp: bool = False  # M>1 jobs: give every constraint/latency
+    # head its own GPHP chain (and factor) instead of sharing the objective's
+    # draws; default off — the shared-factor layout
     cost_aware: bool = False  # EI-per-unit-cost: a log-cost head rides the
     # shared factor and EI is discounted by exp(-eta * zc(x)); off (the
     # default) is the cost-blind engine
@@ -171,19 +188,13 @@ class BOConfig:
             raise ValueError(f"unknown fit_backend {self.fit_backend!r}")
         if self.gphp_method == "map":
             check_map_backend(self.fit_backend)
-        if self.posterior_backend == "subset":
-            raise NotImplementedError(
-                "posterior_backend='subset' is not ported yet "
-                "(ROADMAP queue A item 10)"
-            )
-        if self.posterior_backend != "exact":
+        if self.posterior_backend not in ("exact", "subset"):
             raise ValueError(
-                f"unknown posterior_backend {self.posterior_backend!r}"
+                f"unknown posterior_backend {self.posterior_backend!r} "
+                "(expected 'exact' or 'subset')"
             )
-        if self.per_head_gphp:
-            raise NotImplementedError(
-                "per_head_gphp is not ported yet (ROADMAP queue A item 10)"
-            )
+        if self.max_inducing < 2:
+            raise ValueError("max_inducing must be at least 2")
         if self.cost_cooling < 0:
             raise ValueError("cost_cooling must be non-negative")
 
@@ -218,7 +229,29 @@ class EngineCache:
         self.arena = arena  # FactorArena bounding factor residency (or None)
         self.arena_key = arena_key
         self.store = None  # last bound ObservationStore (arena accounting)
+        # --- subset posterior backend (core/gp/sparse.py) -----------------
+        # store-row indices of the inducing set selected at the last refit
+        # boundary, or None when the exact backend is live. inducing_n0 is
+        # the store-row count at selection time: rows [inducing_n0, n) were
+        # appended to the factor after the boundary.
+        self.inducing_sel: Optional[np.ndarray] = None
+        self.inducing_n0 = 0
+        # --- per-head GPHP chains (BOConfig.per_head_gphp) ----------------
+        self.head_samples: Optional[List[np.ndarray]] = None  # per extra head
+        self.head_posts: Optional[list] = None  # per-head GPPosteriors
+        self.head_n = 0  # store rows folded into the head factors
         self.head_alphas = None  # last shared-factor head alphas (accounting)
+
+    # ------------------------------------------------------------ live rows
+    def live_rows(self, n: int) -> np.ndarray:
+        """Store-row indices the resident factor covers, in factor order:
+        all of ``[0, n)`` on the exact backend, else the inducing set plus
+        every row appended since the boundary."""
+        if self.inducing_sel is None:
+            return np.arange(n, dtype=np.int64)
+        return np.concatenate(
+            [self.inducing_sel, np.arange(self.inducing_n0, n, dtype=np.int64)]
+        )
 
     # ------------------------------------------------------------ lifecycle
     def reset(self) -> None:
@@ -228,28 +261,42 @@ class EngineCache:
         self.obs_since_refit = 0
         self.token = None
         self.pool_version = -1
+        self.inducing_sel = None
+        self.inducing_n0 = 0
+        self.head_samples = None
+        self.head_posts = None
+        self.head_n = 0
         self.head_alphas = None
 
     def invalidate_factors(self) -> None:
         """Forget the factorization but keep draws + cadence (store rebind)."""
         self.post = None
         self.token = None
+        self.inducing_sel = None
+        self.inducing_n0 = 0
+        self.head_posts = None
         self.head_alphas = None
 
     def drop_factors(self) -> None:
-        """Arena eviction hook: release the O(S·n²) factor blocks plus the
-        cached head alphas. The next decision rebuilds them from ``samples``
-        (RNG-free, deterministic)."""
+        """Arena eviction hook: release the O(S·n²) factor blocks (objective
+        and per-head) plus the cached head alphas. The next decision rebuilds
+        them from ``samples``/``head_samples`` (RNG-free, deterministic) —
+        including the inducing-set selection, which is a pure function of the
+        store prefix at the boundary."""
         self.post = None
+        self.inducing_sel = None
+        self.inducing_n0 = 0
+        self.head_posts = None
         self.head_alphas = None
 
     def factor_nbytes(self) -> int:
         """Resident bytes of the factor blocks (what the arena budgets): the
         objective posterior's tensors (x, mask, L, alpha, the GPHPs, L⁻¹ when
-        cached) and the cached multi-head alpha block — the reference's
-        leaves, so both packages evict in the same order."""
+        cached), any per-head posteriors and the cached multi-head alpha
+        block — the reference's leaves, so both packages evict in the same
+        order."""
         total = 0
-        stack = [self.post, self.head_alphas]
+        stack = [self.post, self.head_alphas, *(self.head_posts or ())]
         while stack:
             block = stack.pop()
             if isinstance(block, torch.Tensor):
@@ -291,10 +338,16 @@ class EngineCache:
             "factors": posterior_to_wire(self.post)
             if include_factors and self.post is not None
             else None,
-            "inducing_sel": None,
-            "inducing_n0": 0,
-            "head_samples": None,
-            "head_n": 0,
+            # subset backend: the inducing set is replayable (select_inducing
+            # is deterministic over the store prefix), but shipping it keeps
+            # factor-bearing snapshots self-describing
+            "inducing_sel": array_to_wire(self.inducing_sel),
+            "inducing_n0": self.inducing_n0,
+            # per-head GPHP draws (factors rehydrate like the objective's)
+            "head_samples": None
+            if self.head_samples is None
+            else [array_to_wire(s) for s in self.head_samples],
+            "head_n": self.head_n,
         }
 
     def load_snapshot(self, snap: Mapping[str, Any], device=None) -> None:
@@ -304,11 +357,6 @@ class EngineCache:
         them, else rebuild lazily on the next decision."""
         from repro_torch.core.gp.serialize import array_from_wire, posterior_from_wire
 
-        if snap.get("inducing_sel") is not None or snap.get("head_samples"):
-            raise NotImplementedError(
-                "subset-backend and per-head cache state is not ported yet "
-                "(ROADMAP queue A item 10)"
-            )
         self.samples = array_from_wire(snap["samples"])
         self.n = int(snap["n"])
         self.obs_since_refit = int(snap["obs_since_refit"])
@@ -318,6 +366,15 @@ class EngineCache:
             None if factors is None else posterior_from_wire(factors, device)
         )
         self.token = None  # factors (if any) bind to whatever store comes next
+        sel = array_from_wire(snap.get("inducing_sel"))
+        self.inducing_sel = None if sel is None else sel.astype(np.int64)
+        self.inducing_n0 = int(snap.get("inducing_n0", 0))
+        hs = snap.get("head_samples")
+        self.head_samples = (
+            None if hs is None else [array_from_wire(s) for s in hs]
+        )
+        self.head_posts = None  # rebuilt lazily, like the objective factors
+        self.head_n = int(snap.get("head_n", 0))
         self.head_alphas = None
 
 
@@ -368,6 +425,12 @@ class BOSuggester:
         )
         # persisted slice-chain state: warm-starts the next chain
         self._chain_state: Optional[np.ndarray] = None
+        # per-head chains (BOConfig.per_head_gphp): slot j warm-starts the
+        # chain of extra head j+1
+        self._head_chain_states: Dict[int, np.ndarray] = {}
+        # did the last _posterior_for re-fit or adopt draws? (the per-head
+        # factors re-fit at exactly the objective's boundaries)
+        self._boundary_refit = False
         self._store: Optional[ObservationStore] = store
         if store is not None:
             self._check_multimetric_config(store)
@@ -500,6 +563,10 @@ class BOSuggester:
             and cache.post is not None
             and cache.token in (None, id(self._wrapper_store))  # invariant: id-key -- within-process factor-cache identity check only; the token is never serialized and a fresh process rebuilds the cache from scratch
             and cache.n == len(old)
+            # subset backend: store row i is not factor row i once the
+            # inducing set is live, so the rank-1 downdate does not apply —
+            # fall back to the stateless rebuild.
+            and cache.inducing_sel is None
         ):
             for i in range(len(old)):
                 if old[:i] == fps[:i] and old[i + 1 :] == fps[i : len(old) - 1]:
@@ -591,8 +658,10 @@ class BOSuggester:
         x_all, y_std, _, _ = store.standardized()
         with telemetry.span("suggest.posterior", n=n):
             post = self._posterior_for(store, x_all, y_std)
+        rows = self.cache.live_rows(n)  # factor rows, in store order
+        n_live = len(rows)
         y_live = np.zeros(post.x_train.shape[0])
-        y_live[:n] = y_std
+        y_live[:n_live] = y_std[rows]
         post = refresh_alpha(post, self._tensor(y_live))
         self.cache.post = post
         y_best = float(y_std.min())  # best *real* observation
@@ -603,7 +672,7 @@ class BOSuggester:
         pend_mask = np.zeros(cfg.max_pending, dtype=bool)
         n_excl = 0
         work = post
-        y_work = list(y_live[:n])
+        y_work = list(y_live[:n_live])
         if cfg.pending_strategy in ("liar", "kb") and len(pend_np) > 0:
             if (
                 cfg.fantasy_block
@@ -671,13 +740,15 @@ class BOSuggester:
         self, store: ObservationStore, k: int, pend_np: np.ndarray, ms
     ) -> List[Dict[str, Any]]:
         """One batched decision for an M>1 job (``repro_torch.core.
-        multimetric``), shared-factor layout.
+        multimetric``).
 
         The objective head (metric column 0) drives the exact single-metric
         machinery — GPHP fitting, the cached factor, rank-1 appends, the
-        refit cadence. The extra heads cost one batched solve against that
-        cached factor per decision (``solve_head_alphas``) plus one matvec
-        per head inside scoring."""
+        refit cadence. In the shared-factor layout the extra heads cost one
+        batched solve against that cached factor per decision
+        (``solve_head_alphas``) plus one matvec per head inside scoring; with
+        ``per_head_gphp`` every extra head runs its own GPHP chain and
+        factor instead (``_head_posteriors_for``)."""
         cfg = self.config
         n = store.num_observations
         m_all = ms.num_metrics
@@ -689,13 +760,21 @@ class BOSuggester:
             post = self._posterior_for(
                 store, x_all, np.ascontiguousarray(ystd[:, 0])
             )
+        rows = self.cache.live_rows(n)  # factor rows, in store order
+        n_live = len(rows)
         size = post.x_train.shape[0]
         y_live = np.zeros(size)
-        y_live[:n] = ystd[:, 0]
+        y_live[:n_live] = ystd[rows, 0]
         post = refresh_alpha(post, self._tensor(y_live))
         self.cache.post = post
         y_heads = np.zeros((m_all, size))
-        y_heads[:, :n] = ystd.T
+        y_heads[:, :n_live] = ystd[rows].T
+        head_posts = None
+        if cfg.per_head_gphp:
+            # every extra head runs its own GPHP chain + factor; the shared
+            # (S, M, n) alpha block is not built (head 0 scores through the
+            # objective posterior directly)
+            head_posts = self._head_posteriors_for(store, post, y_heads, n)
 
         # constraint thresholds + feasibility in standardized space
         t_signed = ms.signed_thresholds()  # (C,) raw signed bounds
@@ -726,7 +805,7 @@ class BOSuggester:
             y_best_w = sc.min(axis=0)
             y_best = 0.0
 
-        def make_head(alphas):
+        def make_head(alphas, head_posts_now=()):
             return MultiMetricHead(
                 alphas=alphas,
                 t_std=self._tensor(t_std),
@@ -734,10 +813,12 @@ class BOSuggester:
                 has_feasible=has_feasible,
                 weights=self._tensor(weights),
                 y_best_w=self._tensor(y_best_w),
+                head_posts=tuple(head_posts_now),
             )
 
         return self._decide_heads(
-            store, k, pend_np, x_all, post, y_heads, mode, make_head
+            store, k, pend_np, x_all, post, y_heads, mode, make_head,
+            head_posts=head_posts,
         )
 
     def _decide_cost(
@@ -766,9 +847,11 @@ class BOSuggester:
         x_all, y_std, _, _ = store.standardized()
         with telemetry.span("suggest.posterior", n=n):
             post = self._posterior_for(store, x_all, y_std)
+        rows = self.cache.live_rows(n)  # factor rows, in store order
+        n_live = len(rows)
         size = post.x_train.shape[0]
         y_live = np.zeros(size)
-        y_live[:n] = y_std
+        y_live[:n_live] = y_std[rows]
         post = refresh_alpha(post, self._tensor(y_live))
         self.cache.post = post
 
@@ -788,8 +871,8 @@ class BOSuggester:
         zc[npar:][fin] = (logs[fin] - mean) / scale
 
         y_heads = np.zeros((2, size))  # objective head + log-cost head
-        y_heads[0, :n] = y_std
-        y_heads[1, :n] = zc
+        y_heads[0, :n_live] = y_std[rows]
+        y_heads[1, :n_live] = zc[rows]
 
         ledger = self.budget_ledger
         eta = cfg.cost_cooling
@@ -838,9 +921,11 @@ class BOSuggester:
         x_all, y_std, _, _ = store.standardized()
         with telemetry.span("suggest.posterior", n=n):
             post = self._posterior_for(store, x_all, y_std)
+        rows = self.cache.live_rows(n)  # factor rows, in store order
+        n_live = len(rows)
         size = post.x_train.shape[0]
         y_live = np.zeros(size)
-        y_live[:n] = y_std
+        y_live[:n_live] = y_std[rows]
         post = refresh_alpha(post, self._tensor(y_live))
         self.cache.post = post
 
@@ -848,8 +933,8 @@ class BOSuggester:
         # impute their final objective (dense columns — no per-head masks).
         rung_t = rung_head_targets(store, mf.rungs, num_rungs, y_std)
         y_heads = np.zeros((1 + num_rungs, size))
-        y_heads[0, :n] = y_std
-        y_heads[1:, :n] = rung_t
+        y_heads[0, :n_live] = y_std[rows]
+        y_heads[1:, :n_live] = rung_t[:, rows]
         weights = rung_head_weights(mf.rung_grid, num_rungs)  # (1, R+1)
         # per-head incumbents: each head's EI improves on its own best
         y_best = float(y_std[:n].min())
@@ -874,16 +959,22 @@ class BOSuggester:
     def _decide_heads(
         self, store: ObservationStore, k: int, pend_np: np.ndarray,
         x_all: np.ndarray, post, y_heads: np.ndarray, mode: str,
-        make_head,
+        make_head, head_posts=None,
     ) -> List[Dict[str, Any]]:
         """Pending handling and the slot loop shared by the multi-head
         decisions: solve the head alphas on the shared factor, fold pending
         trials in as fantasies (or exclude them), then fill the k slots from
-        one pipeline pass, re-solving the head alphas after each fantasy."""
+        one pipeline pass, re-solving the head alphas after each fantasy.
+        ``head_posts`` (per-head layout) are the extra heads' own posteriors:
+        fantasies then fold into each of them too, and no shared alpha block
+        is solved."""
         cfg = self.config
-        n_live = store.num_observations
+        per_head = head_posts is not None
+        n_live = len(self.cache.live_rows(store.num_observations))
 
-        def heads_for(work_now, y_block: np.ndarray):
+        def heads_for(work_now, y_block: np.ndarray, posts_now):
+            if per_head:
+                return make_head(work_now.alpha[:, None, :], posts_now)
             with telemetry.span("suggest.head_alphas", heads=len(y_block)):
                 head_now = make_head(
                     solve_head_alphas(work_now, self._tensor(y_block))
@@ -896,15 +987,21 @@ class BOSuggester:
         pend_mask = np.zeros(cfg.max_pending, dtype=bool)
         n_excl = 0
         work = post
-        head = heads_for(post, y_heads)
-        self.cache.head_alphas = head.alphas  # arena accounting (factor_nbytes)
+        head_work = list(head_posts or ())  # per-head scratch posteriors
+        head = heads_for(post, y_heads, head_work)
+        # arena accounting (factor_nbytes); the per-head layout has no block
+        self.cache.head_alphas = None if per_head else head.alphas
         yh_work = [list(y_heads[j, :n_live]) for j in range(len(y_heads))]
         if cfg.pending_strategy in ("liar", "kb") and len(pend_np) > 0:
             xb = self._tensor(pend_np)
             rows = self._pending_rows(work, xb, n_live)
+            head_rows = [self._pending_rows(hp, xb, n_live) for hp in head_work]
             for p, xq in enumerate(xb):
-                work, yh_work = self._fantasy_append_multi(work, yh_work, xq, rows[..., p, :])
-            head = heads_for(work, self._pad_heads(yh_work, work))
+                work, yh_work, head_work = self._fantasy_append_multi(
+                    work, yh_work, xq, rows[..., p, :], head_work,
+                    [r[..., p, :] for r in head_rows],
+                )
+            head = heads_for(work, self._pad_heads(yh_work, work), head_work)
         elif len(pend_np) > 0:
             n_excl = min(len(pend_np), cfg.max_pending)
             pend_buf[:n_excl] = pend_np[:n_excl]
@@ -933,9 +1030,11 @@ class BOSuggester:
             picks.append(vec)
             if slot + 1 < k:
                 if cfg.pending_strategy in ("liar", "kb"):
-                    work, yh_work = self._fantasy_append_multi(
-                        work, yh_work, self._tensor(vec))
-                    head = heads_for(work, self._pad_heads(yh_work, work))
+                    work, yh_work, head_work = self._fantasy_append_multi(
+                        work, yh_work, self._tensor(vec), None, head_work)
+                    head = heads_for(
+                        work, self._pad_heads(yh_work, work), head_work
+                    )
                 elif n_excl < cfg.max_pending:
                     pend_buf[n_excl] = vec
                     pend_mask[n_excl] = True
@@ -953,30 +1052,50 @@ class BOSuggester:
         return out
 
     def _fantasy_append_multi(
-        self, work, yh_work: List[List[float]], xq: torch.Tensor, row=None
+        self, work, yh_work: List[List[float]], xq: torch.Tensor, row=None,
+        head_work=(), head_rows=None,
     ):
-        """Multi-head fantasy fold: append the input once to the shared
-        factor and extend every head's target list with its fantasy value
-        (constant liar, or per-head kriging-believer means). ``row``: as in
-        ``_fantasy_append``."""
+        """Multi-head fantasy fold: append the input once per resident
+        factor (the shared factor, plus each per-head factor when
+        ``per_head_gphp`` is on) and extend every head's target list with its
+        fantasy value (constant liar, or per-head kriging-believer means).
+        ``row`` / ``head_rows``: the cross rows, as in ``_fantasy_append``."""
         cfg = self.config
+        head_work = list(head_work)
         if cfg.pending_strategy == "kb":
-            alphas_now = solve_head_alphas(
-                work, self._tensor(self._pad_heads(yh_work, work))
-            )
-            mu, _ = predict_heads(
-                MultiOutputPosterior(work, alphas_now),
-                xq[None, :],
-                backend=cfg.fit_backend,
-            )  # (S, M, 1)
-            vals = [float(v) for v in torch.mean(mu, dim=0)[:, 0].cpu().numpy()]
+            if head_work:
+                # per-head kriging believer: each head's own posterior mean
+                vals = []
+                for p in [work, *head_work]:
+                    mu, _ = gplib.predict(p, xq[None, :], backend=cfg.fit_backend)
+                    vals.append(float(torch.mean(mu)))
+            else:
+                alphas_now = solve_head_alphas(
+                    work, self._tensor(self._pad_heads(yh_work, work))
+                )
+                mu, _ = predict_heads(
+                    MultiOutputPosterior(work, alphas_now),
+                    xq[None, :],
+                    backend=cfg.fit_backend,
+                )  # (S, M, 1)
+                vals = [float(v) for v in torch.mean(mu, dim=0)[:, 0].cpu().numpy()]
         else:
             vals = [cfg.liar_value] * len(yh_work)
-        work = self._append_fantasy_input(work, len(yh_work[0]), xq, row)
+        live = len(yh_work[0])
+        work = self._append_fantasy_input(work, live, xq, row)
         yh_work = [col + [v] for col, v in zip(yh_work, vals)]
         y_pad = np.zeros(work.x_train.shape[0])
         y_pad[: len(yh_work[0])] = yh_work[0]
-        return refresh_alpha(work, self._tensor(y_pad)), yh_work
+        work = refresh_alpha(work, self._tensor(y_pad))
+        refolded = []
+        for j, hp in enumerate(head_work):
+            hp = self._append_fantasy_input(
+                hp, live, xq, None if head_rows is None else head_rows[j]
+            )
+            yj = np.zeros(hp.x_train.shape[0])
+            yj[:live + 1] = yh_work[j + 1]
+            refolded.append(refresh_alpha(hp, self._tensor(yj)))
+        return work, yh_work, refolded
 
     # ------------------------------------------------------ posterior cache
     def _posterior_for(
@@ -993,6 +1112,7 @@ class BOSuggester:
         n = x_all.shape[0]
         token = id(store)  # invariant: id-key -- within-process factor-cache identity check only; never serialized, rebuilt per process
         cache.store = store  # arena end-to-end accounting
+        self._boundary_refit = False  # did this decision re-fit/adopt draws?
 
         samples_valid = (
             cfg.incremental
@@ -1039,13 +1159,16 @@ class BOSuggester:
             post_valid = False  # factors (if any) describe the old draws
             new_obs = 0  # the adopted draws cover all current rows
             acct = n  # adoption factorizes at n: the new factor boundary
+            self._boundary_refit = True
 
         if pool is not None:
             pool.decisions += 1
 
         if resample:
+            self._boundary_refit = True
             telemetry.count("suggest.gphp.refit")
-            xj, yj, mj = self._pad_rows(x_all, y_std, n)
+            rows = self._boundary_rows(x_all, n)
+            xj, yj, mj = self._pad_rows(x_all, y_std, rows)
             with telemetry.span("suggest.gphp_fit", n=n):
                 samples = self._fit_gphps(xj, yj, mj)  # consumes one RNG key
             cache.samples = np.asarray(samples)
@@ -1065,17 +1188,27 @@ class BOSuggester:
             # that exact op sequence instead of refactorizing at n (a size-n
             # Cholesky differs from factorize(r)+appends in the last bits,
             # which would break the bit-equivalence of snapshots and
-            # eviction). RNG-free.
+            # eviction). RNG-free. The subset backend keeps the invariant:
+            # its inducing set is a deterministic function of the store
+            # prefix at the boundary, so re-selecting over [0, r) gives the
+            # evicted or snapshotted factor's layout before the appends
+            # replay.
             r = min(n, max(2, acct - cache.obs_since_refit))
             cache.obs_since_refit += new_obs
-            xj, yj, mj = self._pad_rows(x_all, y_std, r)
+            rows = self._boundary_rows(x_all[:r], r)
+            xj, yj, mj = self._pad_rows(x_all, y_std, rows)
             with telemetry.span("suggest.factor_rebuild", n=n, boundary=r):
                 post = self._factorize(xj, yj, mj)
-                post = self._append_rows(post, store, r, n)
+                post = self._append_rows(post, store, r, n, live0=len(rows))
                 self._settle()
         else:
+            live0 = (
+                acct
+                if cache.inducing_sel is None
+                else len(cache.inducing_sel) + (acct - cache.inducing_n0)
+            )
             with telemetry.span("suggest.rank1_append", n=n, new=new_obs):
-                post = self._append_rows(cache.post, store, acct, n)
+                post = self._append_rows(cache.post, store, acct, n, live0=live0)
                 self._settle()
             cache.obs_since_refit += new_obs
 
@@ -1083,13 +1216,33 @@ class BOSuggester:
         cache.token = token
         return post
 
-    def _pad_rows(self, x_all: np.ndarray, y_std: np.ndarray, nlive: int):
-        """Bucket-pad the first ``nlive`` rows for fitting/factorization."""
+    def _boundary_rows(self, x_prefix: np.ndarray, r: int) -> np.ndarray:
+        """Live store rows of a factorization at boundary ``r`` — all of
+        ``[0, r)`` on the exact backend, the greedy max-diversity inducing
+        set on the subset backend once the boundary reaches ``n_switch``.
+        Records the selection on the cache (``inducing_sel``/``inducing_n0``)
+        so the append path and target gathering agree with the factor."""
+        cfg = self.config
+        cache = self.cache
+        if cfg.posterior_backend == "subset" and r >= cfg.n_switch:
+            with telemetry.span("suggest.select_inducing", n=r,
+                                m=cfg.max_inducing):
+                sel = select_inducing(x_prefix, cfg.max_inducing)
+            cache.inducing_sel = sel
+            cache.inducing_n0 = r
+            return sel
+        cache.inducing_sel = None
+        cache.inducing_n0 = 0
+        return np.arange(r, dtype=np.int64)
+
+    def _pad_rows(self, x_all: np.ndarray, y_std: np.ndarray, rows: np.ndarray):
+        """Gather and bucket-pad the live rows for fitting/factorization."""
+        nlive = len(rows)
         nb = bucket_size(nlive)
         x_pad = np.zeros((nb, self.space.encoded_dim))
         y_pad = np.zeros((nb,))
-        x_pad[:nlive] = x_all[:nlive]
-        y_pad[:nlive] = y_std[:nlive]
+        x_pad[:nlive] = x_all[rows]
+        y_pad[:nlive] = y_std[rows]
         mask = np.zeros(nb, dtype=bool)
         mask[:nlive] = True
         return (
@@ -1102,25 +1255,126 @@ class BOSuggester:
         """Factorize the masked rows under the cached GPHP draws. The fused
         anchor-scoring kernel consumes L⁻¹; build it at factorization time so
         every decision (and fantasy append) reuses the cached inverse."""
-        params_batch = gpparams.GPHyperParams.unpack(
-            self._tensor(self.cache.samples), self.space.encoded_dim
-        )
-        return gplib.fit_posterior_batch(
-            xj, yj, params_batch, mj, backend=self.config.fit_backend,
+        return self._factorize_with(
+            self.cache.samples, xj, yj, mj,
             with_inverse=self.config.acq.backend == "kernel",
         )
 
-    def _append_rows(self, post, store: ObservationStore, start: int, stop: int):
+    def _factorize_with(self, samples, xj, yj, mj, with_inverse=False):
+        """Factorize under an explicit draw set. Per-head factors take no
+        L⁻¹: their scorer is the torch composition."""
+        params_batch = gpparams.GPHyperParams.unpack(
+            self._tensor(samples), self.space.encoded_dim
+        )
+        return gplib.fit_posterior_batch(
+            xj, yj, params_batch, mj, backend=self.config.fit_backend,
+            with_inverse=with_inverse,
+        )
+
+    def _head_posteriors_for(self, store: ObservationStore, post, y_heads, n):
+        """Per-head posteriors for ``BOConfig.per_head_gphp`` — one GPHP
+        chain and one factor per extra head, following the objective
+        factor's lifecycle: re-fitted at the objective's refit/adoption
+        boundaries (one RNG key per head, in head order), rank-1-appended
+        between boundaries, and rebuilt RNG-free after a restore or arena
+        eviction (the factor depends on X only, so the replay needs no
+        targets). Alphas are refreshed against the current head targets
+        every decision. Returns the posts in head order (head 1 first)."""
+        cache = self.cache
+        m_extra = y_heads.shape[0] - 1
+        xj, mj = post.x_train, post.mask
+        stale = (
+            cache.head_samples is None or len(cache.head_samples) != m_extra
+        )
+        if self._boundary_refit or stale:
+            samples, posts = [], []
+            for j in range(m_extra):
+                yj = self._tensor(y_heads[j + 1])
+                with telemetry.span("suggest.head_gphp_fit", n=n, head=j + 1):
+                    s = self._fit_gphps(xj, yj, mj, chain_slot=j)
+                samples.append(np.asarray(s))
+                with telemetry.span("suggest.head_factorize", n=n, head=j + 1):
+                    posts.append(self._factorize_with(s, xj, yj, mj))
+                    self._settle()
+            cache.head_samples = samples
+            cache.head_posts = posts
+            cache.head_n = n
+        elif cache.head_posts is None:
+            # RNG-free rebuild: replay factorize-at-boundary + appends (the
+            # objective factor's invariant; see ``_posterior_for``)
+            b = n - cache.obs_since_refit
+            rows_b = (
+                cache.inducing_sel
+                if cache.inducing_sel is not None
+                else np.arange(b, dtype=np.int64)
+            )
+            nlive = len(rows_b)
+            nb = bucket_size(nlive)
+            x_pad = np.zeros((nb, self.space.encoded_dim))
+            x_pad[:nlive] = store.x_rows(0, b)[rows_b]
+            mask = np.zeros(nb, dtype=bool)
+            mask[:nlive] = True
+            posts = []
+            with telemetry.span("suggest.head_rebuild", n=n, boundary=b,
+                                heads=m_extra):
+                for j in range(m_extra):
+                    hp = self._factorize_with(
+                        cache.head_samples[j],
+                        self._tensor(x_pad),
+                        self._tensor(np.zeros(nb)),
+                        self._tensor(mask, dtype=torch.bool),
+                    )
+                    posts.append(self._append_rows(hp, store, b, n, live0=nlive))
+                self._settle()
+            cache.head_posts = posts
+            cache.head_n = n
+        elif cache.head_n < n:
+            # the heads hold the live rows of store prefix head_n (the same
+            # inducing set as the objective: both change only at a boundary)
+            live0 = len(cache.live_rows(cache.head_n))
+            with telemetry.span("suggest.head_append", n=n,
+                                new=n - cache.head_n, heads=m_extra):
+                cache.head_posts = [
+                    self._append_rows(hp, store, cache.head_n, n, live0=live0)
+                    for hp in cache.head_posts
+                ]
+                self._settle()
+            cache.head_n = n
+        out = []
+        for j, hp in enumerate(cache.head_posts):
+            yj = np.zeros(hp.x_train.shape[0])
+            m_copy = min(yj.shape[0], y_heads.shape[1])
+            yj[:m_copy] = y_heads[j + 1, :m_copy]
+            out.append(refresh_alpha(hp, self._tensor(yj)))
+        cache.head_posts = out
+        return tuple(out)
+
+    def _append_rows(
+        self,
+        post,
+        store: ObservationStore,
+        start: int,
+        stop: int,
+        live0: Optional[int] = None,
+    ):
         """Rank-1-append store rows [start, stop), growing the shape bucket
         per row. Growth points depend only on the live-row count, so the
         factor state is a path-independent function of (draws, rows, refit
-        boundary); rebuilds replay it bit-exactly."""
+        boundary); rebuilds replay it bit-exactly.
+
+        ``live0`` is the number of live rows the factor holds before the
+        first append: ``start`` on the exact backend (store row == factor
+        row), the inducing count plus the appends since the boundary on the
+        subset backend, where the factor is smaller than the store."""
+        if live0 is None:
+            live0 = start
         for i in range(start, stop):
-            nb_i = bucket_size(i + 1)
+            live = live0 + (i - start)
+            nb_i = bucket_size(live + 1)
             if post.x_train.shape[0] < nb_i:
                 post = grow_posterior(post, nb_i)
             post = posterior_append(
-                post, self._tensor(store.x_rows(i, i + 1)[0]), idx=i,
+                post, self._tensor(store.x_rows(i, i + 1)[0]), idx=live,
                 backend=self.config.fit_backend,
             )
         return post
@@ -1186,17 +1440,26 @@ class BOSuggester:
         return refresh_alpha(work, self._tensor(y_pad)), y_work
 
     # ---------------------------------------------------------------- gphps
-    def _fit_gphps(self, xj, yj, mj) -> np.ndarray:
+    def _fit_gphps(
+        self, xj, yj, mj, chain_slot: Optional[int] = None
+    ) -> np.ndarray:
         """Sample (or, for ``gphp_method="map"``, optimize) packed GPHPs;
-        returns (S, 3d+2) float64 numpy draws (S = 1 for MAP)."""
+        returns (S, 3d+2) float64 numpy draws (S = 1 for MAP).
+        ``chain_slot=None`` is the objective chain; slot ``j`` is the
+        warm-start state of extra head ``j+1`` (``per_head_gphp``)."""
         cfg = self.config
         d = self.space.encoded_dim
         bounds = self._bounds
         init = gpparams.default_params(d).pack().numpy()
         init = np.clip(init, bounds.lower + 1e-4, bounds.upper - 1e-4)
-        if self._chain_state is not None:
+        prev_state = (
+            self._chain_state
+            if chain_slot is None
+            else self._head_chain_states.get(chain_slot)
+        )
+        if prev_state is not None:
             init = np.clip(
-                np.asarray(self._chain_state, dtype=np.float64),
+                np.asarray(prev_state, dtype=np.float64),
                 bounds.lower + 1e-4, bounds.upper - 1e-4,
             )
         if cfg.gphp_method == "map":
@@ -1204,14 +1467,22 @@ class BOSuggester:
                 xj, yj, mj, bounds, init, self._next_key(), cfg.eb_config,
                 cfg.fit_backend,
             )
-            self._chain_state = np.array(best)
+            self._set_chain_state(chain_slot, np.array(best))
             return best[None, :]
         samples = mcmc_gphps(
             xj, yj, mj, bounds, init, self._next_key(), cfg.slice_config,
             cfg.fit_backend,
         )
-        self._chain_state = np.array(samples[-1])
+        self._set_chain_state(chain_slot, np.array(samples[-1]))
         return samples
+
+    def _set_chain_state(
+        self, chain_slot: Optional[int], state: np.ndarray
+    ) -> None:
+        if chain_slot is None:
+            self._chain_state = state
+        else:
+            self._head_chain_states[chain_slot] = state
 
     # ---------------------------------------------------------- cold starts
     def _seen_matrix(
@@ -1259,9 +1530,16 @@ class BOSuggester:
             else np.asarray(self.cache.samples).tolist(),
             "cached_n": self.cache.n,
             "obs_since_refit": self.cache.obs_since_refit,
-            "head_chain_states": None,
-            "cached_head_samples": None,
-            "cached_head_n": 0,
+            # per-head GPHP chains (per_head_gphp; None when off)
+            "head_chain_states": {
+                str(k): v.tolist()
+                for k, v in self._head_chain_states.items()
+            }
+            or None,
+            "cached_head_samples": None
+            if self.cache.head_samples is None
+            else [np.asarray(s).tolist() for s in self.cache.head_samples],
+            "cached_head_n": self.cache.head_n,
         }
         # multi-fidelity rung tables ride the suggester state so the Tuner
         # checkpoint carries them without a new channel; key absent when MF
@@ -1278,10 +1556,6 @@ class BOSuggester:
         """Install ``state_dict()`` output — this package's or the JAX
         package's — into a suggester constructed with the same (space,
         config, seed); the next decision continues the original stream."""
-        if state.get("head_chain_states") or state.get("cached_head_samples"):
-            raise NotImplementedError(
-                "per-head GPHP state is not ported yet (ROADMAP queue A item 10)"
-            )
         cs = state.get("chain_state")
         self._chain_state = None if cs is None else np.asarray(cs, dtype=np.float64)
         self._sobol_init.reset()
@@ -1298,6 +1572,19 @@ class BOSuggester:
         self.cache.obs_since_refit = int(state.get("obs_since_refit", 0))
         self.cache.post = None  # refactorized lazily from cached samples
         self.cache.token = None
+        self.cache.inducing_sel = None  # re-selected in the RNG-free rebuild
+        self.cache.inducing_n0 = 0
+        hcs = state.get("head_chain_states") or {}
+        self._head_chain_states = {
+            int(k): np.asarray(v, dtype=np.float64) for k, v in hcs.items()
+        }
+        hs = state.get("cached_head_samples")
+        self.cache.head_samples = (
+            None if hs is None
+            else [np.asarray(s, dtype=np.float64) for s in hs]
+        )
+        self.cache.head_n = int(state.get("cached_head_n", 0))
+        self.cache.head_posts = None  # rebuilt lazily, like the objective's
         self.cache.head_alphas = None
         mf = state.get("multi_fidelity")
         if mf is not None and self.multi_fidelity_state is not None:

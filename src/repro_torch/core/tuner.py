@@ -41,9 +41,8 @@ Features implemented per the paper:
   * service mode (``service=SelectionService(...)``: shared GPHP pool,
     factor arena, sibling warm start) and multi-fidelity jobs
     (``TuningJobConfig.multi_fidelity``: in-service ASHA with per-rung
-    acquisition heads).
-
-The socket replicas of service mode wait (ROADMAP queue A item 11).
+    acquisition heads), in process or through a fleet of engine replicas
+    over sockets (``service=repro_torch.distributed.RemoteService(...)``).
 """
 
 from __future__ import annotations
@@ -204,11 +203,13 @@ class Tuner:
             folded into the GP dataset once (§5.3).
         callbacks: ``f(tuner, trial)`` hooks invoked at each trial's
             terminal event.
-        service: optional ``SelectionService`` (in-process; the socket
-            replicas wait, ROADMAP A11). When set, the store and engine
-            cache are service-owned, registration folds sibling warm-start
-            in, and slot refill routes through ``JobHandle.suggest_batch`` —
-            the RPC seam.
+        service: optional ``SelectionService`` (in-process) or
+            ``repro_torch.distributed.RemoteService`` (engine-replica fleet
+            over sockets). When set, the store and engine cache are
+            service-owned, registration folds sibling warm-start in, and slot
+            refill routes through ``JobHandle.suggest_batch`` — the RPC seam.
+            Both service types give the same trial table for the same inputs
+            (the wire protocol is exact).
 
     ``run()`` returns a ``TuningResult``; ``save()``/``restore()`` checkpoint
     and resume a job bit-identically (including in remote service mode).
@@ -360,8 +361,9 @@ class Tuner:
             self.suggester = handle.suggester
             if handle.warm_pool is not None:
                 self.warm_start = handle.warm_pool
-            # the service owns the ledger (the live object) — the tuner
-            # gates launches against it and charges through the handle.
+            # the service owns the ledger (in-process: the live object;
+            # remote: the client's lock-step mirror) — the tuner gates
+            # launches against it and charges through the handle.
             self.budget_ledger = getattr(handle, "budget_ledger", None)
             return handle.store
         store = ObservationStore(

@@ -486,8 +486,9 @@ def test_jax_pareto_state_dict_loads_into_port():
 
 
 def test_refusals_twin():
-    """acq="lcb" is refused for M > 1 in both packages; per-head GPHP chains
-    are not ported and say where they wait."""
+    """acq="lcb" is refused for M > 1 in both packages, per-head GPHP chains
+    or not; an unknown posterior backend and max_inducing < 2 are refused by
+    both packages' ``BOConfig`` alike."""
     for pkg in ("jax", "torch"):
         C = PKG[pkg]["C"]
         space = space_of(C)
@@ -495,5 +496,10 @@ def test_refusals_twin():
         cfg = bo_config(pkg, acq=dict(SMALL_ACQ, acq="lcb"))
         with pytest.raises(ValueError, match="acq='ei'"):
             C.BOSuggester(space, cfg, seed=0, store=store, **PKG[pkg]["kw"])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.BOConfig(per_head_gphp=True)
+        cfg = bo_config(pkg, acq=dict(SMALL_ACQ, acq="lcb"), per_head_gphp=True)
+        with pytest.raises(ValueError, match="acq='ei'"):
+            C.BOSuggester(space, cfg, seed=0, store=store, **PKG[pkg]["kw"])
+        with pytest.raises(ValueError, match="unknown posterior_backend"):
+            C.BOConfig(posterior_backend="vortex")
+        with pytest.raises(ValueError, match="at least 2"):
+            C.BOConfig(max_inducing=1)
