@@ -115,23 +115,47 @@ of the JAX package. Phases:
    the last state, each case with its share of the bytes and the operations
    bound), then the same serving run, checks and torch composition as phase 6 (64 ``mamba_scan``
    launches per prefill), then decode after prefill and the torch
-   composition's prefill once more with the model computing in float32.
+   composition's prefill once more with the model computing in float32;
+10. training and the tuning job (run after phase 7) — the paper's use
+   case on granite-moe-1b-a400m at its full published widths and depth (24
+   layers, 32 experts top-8, 1.33e9 parameters, seeded on the card): (m)
+   four 3000-token requests served with the kernels for 16 tokens (24
+   ``flash_attention`` launches a prefill) and held against the torch
+   composition, which takes the kernel run's expert choices (the tokens
+   whose own top-8 set differs are counted), in bf16 and in float32; ten
+   training steps of 16 × 1024 synthetic tokens (2 microbatches, remat,
+   AdamW; the step replayed from a CUDA graph after two eager steps) —
+   finite losses and gradient norms, the last loss below the first, the
+   step time, tokens/s, peak memory and a ``torch.profiler`` step; a
+   restart at 2 layers under deterministic algorithms (6 steps straight
+   against 3, a checkpoint, a fresh model loaded from it and 3 more: every
+   parameter, m, v and the step bit for bit); (n) an 8-trial BO tuning job
+   (``launch/train.py``'s space and objective at 60 steps of 8 × 64 tokens,
+   eval every 10; two trials in flight on ``ThreadBackend``; the median
+   rule; ``BOConfig(num_init=3, fit_backend="kernel").fast()``): every
+   trial completed or stopped with finite reports, none failed, the best
+   eval loss below the untrained model's, ``acq_score`` 2 launches and
+   ``slice_chain`` at most 1 a GP decision at row buckets phase 2 held;
+   the trial table, the decisions' p50 and peak memory.
 
-Launch counts are set to 0 just before each job of phases 4, 5, 8 and 9, the
-serving runs of phases 6 and 7 and the flash-decode path, and read just
-after; each must launch every kernel of its path (jobs: and score only row
+Launch counts are set to 0 just before each job of phases 4, 5, 8, 9 and
+10, the serving runs of phases 6, 7 and 10 and the flash-decode path, and
+read just after; each must launch every kernel of its path (jobs: and score only row
 buckets that phase 2 held against the plain version). Prints one line per
 case (with the rate of the resource that bounds it and its share of the
 bound) and each phase's wall time, then a
 JSON line of per-kernel numbers (``launches`` from the kernel's own path,
 ``s5_launches`` from each path of phase 8, ``large_n_launches`` from each
-of phase 9), then as its last line
+of phase 9, ``train_launches`` from (m)'s serving run and (n)'s job), then
+as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
 any failure — including no visible card.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -248,6 +272,15 @@ SERVE_TOL = 5e-2
 # bf16 ones at 1e-1, about twice the noise measured, against breakage.
 MAMBA_BF16_TOL = 1e-1
 F32_SERVE_TOL = 1e-3
+# Phase 10 (granite-moe-1b-a400m) in bf16, the torch composition taking the
+# kernel run's expert choices (MoERouting; left to its own, it chooses
+# another top-8 set at ~4% of (layer, token) routings, each a jump of its
+# token's output). The first chip run of this phase measured at most
+# 1.717e-2 (the KV caches; logits 9.4e-3 to 1.12e-2, decode after prefill
+# 1.121e-2), where one bf16 ulp per attention layer over 24 layers allows
+# 24 · 2^-8 ≈ 9.4e-2. The bound is 5e-2, about three times the measurement,
+# against breakage; the float32 checks (F32_SERVE_TOL) hold the semantics.
+GRANITE_BF16_TOL = 5e-2
 # slice_chain against its plain version (phase 2): the kept samples to
 # 1e-9 — both sides compute the chain's points with the same float64
 # operations, so while they take the same branches the samples are equal,
@@ -342,6 +375,13 @@ MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_PARAMS = 7_272_665_088
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 3000, 16
 SERVE_SEED = 2024
+# Phase 10: granite-moe-1b-a400m at its published widths and depth; its
+# training run (the launcher's data at seq 1024, global batch 16) and the
+# tuning job (the launcher's seq 64 and global batch 8).
+GRANITE_ARCH = "granite-moe-1b-a400m"
+GRANITE_PARAMS = 1_334_628_352
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 1024, 16, 10
+TUNE_TRIALS, TUNE_STEPS, TUNE_EVERY = 8, 60, 10
 
 
 def band_pairs(s: int, window: int) -> int:
@@ -433,7 +473,7 @@ def cache_errs(errs: dict, got, ref, suffix: str = "") -> None:
             errs[leaf + suffix] = max(errs.get(leaf + suffix, 0.0), rel_err(g_, r_))
 
 
-def serve_model(torch, K, arch, n_expected, expect, tol, dev, f32_tol=None):
+def serve_model(torch, K, arch, n_expected, expect, tol, dev, f32_tol=None, routing=None):
     """Serve ``SERVE_BATCH`` seeded ``SERVE_PROMPT``-token requests of
     ``arch`` at its full published widths and depth (seeded weights made on
     the card) for ``SERVE_NEW`` greedy tokens with the kernels; fail unless
@@ -489,25 +529,26 @@ def serve_model(torch, K, arch, n_expected, expect, tol, dev, f32_tol=None):
     # the same requests timed step by step (prefill, then each decode step)
     prefill = make_prefill(model, cache_len)
     step = make_decode_step(model)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, caches = prefill(prompt)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
-    if tuple(logits.shape) != (B, cfg.vocab_size) or not torch.isfinite(logits).all():
-        fail("serve: prefill logits not finite or of the wrong shape")
-    snapshot = clone_caches(caches)
-    k_logits = [logits]
-    step_ms = []
-    for i in range(NEW):
+    with routing.recording() if routing else contextlib.nullcontext():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, caches = step(caches, tokens[:, i], S + i)
+        logits, caches = prefill(prompt)
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        if not torch.isfinite(logits).all():
-            fail(f"serve: decode step {i} logits not finite")
-        k_logits.append(logits)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        if tuple(logits.shape) != (B, cfg.vocab_size) or not torch.isfinite(logits).all():
+            fail("serve: prefill logits not finite or of the wrong shape")
+        snapshot = clone_caches(caches)
+        k_logits = [logits]
+        step_ms = []
+        for i in range(NEW):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = step(caches, tokens[:, i], S + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if not torch.isfinite(logits).all():
+                fail(f"serve: decode step {i} logits not finite")
+            k_logits.append(logits)
     # where a step's and a prefill's time goes (one more of each)
     device_profile(torch, "decode step", lambda: step(caches, tokens[:, -1], S + NEW))
     del caches
@@ -536,13 +577,20 @@ def serve_model(torch, K, arch, n_expected, expect, tol, dev, f32_tol=None):
           f"of its {step_med:.3f} ms", flush=True)
 
     # decode after prefill equals the full forward one token longer
-    with torch.inference_mode():
-        full = torch.cat([prompt, tokens[:, :1]], dim=1)
-        x = model._backbone(model._embed(full), model._positions(B, S + 1))
-        x = rms_norm(x, model.final_norm, cfg.norm_eps)
-        want = model._head(x[:, -1:, :]).float()[:, 0]
-        del full, x
-    rel = float((k_logits[1] - want).abs().max()) / max(1.0, float(want.abs().max()))
+    with routing.no_drop(model) if routing else contextlib.nullcontext():
+        with torch.inference_mode():
+            full = torch.cat([prompt, tokens[:, :1]], dim=1)
+            x, _ = model._backbone(model._embed(full), model._positions(B, S + 1))
+            x = rms_norm(x, model.final_norm, cfg.norm_eps)
+            want = model._head(x[:, -1:, :]).float()[:, 0]
+            del full, x
+        if routing:
+            _, parity_caches = prefill(prompt)
+            first, _ = step(parity_caches, tokens[:, 0], S)
+            del parity_caches
+        else:
+            first = k_logits[1]
+    rel = float((first - want).abs().max()) / max(1.0, float(want.abs().max()))
     print(f"serve: decode after prefill vs the forward over S+1 tokens: max |Δ| "
           f"{rel:.3e} of max(1, max |logit|) (tol {tol:.0e})", flush=True)
     if rel > tol:
@@ -552,36 +600,40 @@ def serve_model(torch, K, arch, n_expected, expect, tol, dev, f32_tol=None):
     # kernel run's tokens
     model.impl = "torch"
     K.reset_launch_counts()
-    t0 = time.perf_counter()
-    logits, caches = prefill(prompt)
-    torch.cuda.synchronize()
-    torch_prefill_ms = (time.perf_counter() - t0) * 1e3
-    if any(K.LAUNCHES.values()):
-        fail(f"serve: the torch composition launched kernels {dict(K.LAUNCHES)}")
-    errs = {"prefill logits": rel_err(logits, k_logits[0])}
-    cache_errs(errs, caches, snapshot)
-    errs["decode logits"] = 0.0
-    top1 = int((logits.argmax(-1) == k_logits[0].argmax(-1)).sum())
-    for i in range(NEW):
-        logits, caches = step(caches, tokens[:, i], S + i)
-        errs["decode logits"] = max(errs["decode logits"], rel_err(logits, k_logits[i + 1]))
-        top1 += int((logits.argmax(-1) == k_logits[i + 1].argmax(-1)).sum())
+    with routing.replaying() if routing else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        logits, caches = prefill(prompt)
+        torch.cuda.synchronize()
+        torch_prefill_ms = (time.perf_counter() - t0) * 1e3
+        if any(K.LAUNCHES.values()):
+            fail(f"serve: the torch composition launched kernels {dict(K.LAUNCHES)}")
+        errs = {"prefill logits": rel_err(logits, k_logits[0])}
+        cache_errs(errs, caches, snapshot)
+        errs["decode logits"] = 0.0
+        top1 = int((logits.argmax(-1) == k_logits[0].argmax(-1)).sum())
+        for i in range(NEW):
+            logits, caches = step(caches, tokens[:, i], S + i)
+            errs["decode logits"] = max(errs["decode logits"], rel_err(logits, k_logits[i + 1]))
+            top1 += int((logits.argmax(-1) == k_logits[i + 1].argmax(-1)).sum())
     model.impl = "kernel"
     print(f"serve invariance (kernels vs torch composition, teacher-forced): torch prefill "
           f"{torch_prefill_ms:.3f} ms; max |Δ| over max(1, max |torch|): "
           + ", ".join(f"{key} {val:.3e}" for key, val in errs.items())
-          + f" (tol {tol:.0e}); top-1 agreement {top1} of {B * (NEW + 1)}", flush=True)
+          + f" (tol {tol:.0e}); top-1 agreement {top1} of {B * (NEW + 1)}"
+          + (f"; {routing.summary()}" if routing else ""), flush=True)
     if max(errs.values()) > tol:
         fail("serve: the kernels and the torch composition disagree")
     del caches, k_logits
     if f32_tol is not None:
-        f32_checks(torch, K, model, prompt, tokens, f32_tol)
+        f32_checks(torch, K, model, prompt, tokens, f32_tol, routing)
     return launches, model, snapshot
 
 
-def f32_checks(torch, K, model, prompt, tokens, tol) -> None:
+def f32_checks(torch, K, model, prompt, tokens, tol, routing=None) -> None:
     """``serve_model``'s decode-after-prefill and kernel-vs-torch checks with
-    the model computing in float32 (its weights' type, so no casts)."""
+    the model computing in float32 (its weights' type, so no casts); a MoE
+    model with a capacity that drops no pair, the torch composition taking
+    the kernel prefill's expert choices."""
     from repro_torch.models.common import rms_norm
 
     cfg = model.cfg
@@ -589,19 +641,22 @@ def f32_checks(torch, K, model, prompt, tokens, tol) -> None:
     bf16 = model.compute_dtype
     model.compute_dtype = torch.float32
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        full = torch.cat([prompt, tokens[:, :1]], dim=1)
-        x = model._backbone(model._embed(full), model._positions(B, S + 1))
-        x = rms_norm(x, model.final_norm, cfg.norm_eps)
-        want = model._head(x[:, -1:, :]).float()[:, 0]
-        del full, x
-    logits, caches = model.prefill(prompt, S + 1)
-    snapshot = clone_caches(caches)
-    stepped, _ = model.decode_step(caches, tokens[:, 0], S)
-    del caches
-    errs = {"decode after prefill vs forward": rel_err(stepped, want)}
-    model.impl = "torch"
-    t_logits, t_caches = model.prefill(prompt, S + 1)
+    with routing.no_drop(model) if routing else contextlib.nullcontext():
+        with torch.inference_mode():
+            full = torch.cat([prompt, tokens[:, :1]], dim=1)
+            x, _ = model._backbone(model._embed(full), model._positions(B, S + 1))
+            x = rms_norm(x, model.final_norm, cfg.norm_eps)
+            want = model._head(x[:, -1:, :]).float()[:, 0]
+            del full, x
+        with routing.recording() if routing else contextlib.nullcontext():
+            logits, caches = model.prefill(prompt, S + 1)
+        snapshot = clone_caches(caches)
+        stepped, _ = model.decode_step(caches, tokens[:, 0], S)
+        del caches
+        errs = {"decode after prefill vs forward": rel_err(stepped, want)}
+        model.impl = "torch"
+        with routing.replaying() if routing else contextlib.nullcontext():
+            t_logits, t_caches = model.prefill(prompt, S + 1)
     model.impl = "kernel"
     model.compute_dtype = bf16
     errs["prefill logits vs torch"] = rel_err(logits, t_logits)
@@ -609,9 +664,86 @@ def f32_checks(torch, K, model, prompt, tokens, tol) -> None:
     torch.cuda.synchronize()
     print(f"serve f32 (compute in float32, {time.perf_counter() - t0:.1f} s): max |Δ| over "
           "max(1, max |ref|): " + ", ".join(f"{key} {val:.3e}" for key, val in errs.items())
-          + f" (tol {tol:.0e})", flush=True)
+          + f" (tol {tol:.0e})" + (f"; {routing.summary()}" if routing else ""), flush=True)
     if max(errs.values()) > tol:
         fail("serve f32: decode after prefill or the torch composition disagrees")
+
+
+class MoERouting:
+    """Instrumentation of the port's MoE routing (``models/mlp.py::route``)
+    for the serving checks of a MoE model. While ``recording``, each routing
+    call's top-k experts are kept in call order (the kernel run); while
+    ``replaying``, each call takes the recorded experts instead of its own —
+    the torch composition then routes as the kernel run did, so the logits
+    and caches compare the kernels and not two routings — and the tokens
+    whose own top-k set differs are counted (a numerical difference moving a
+    near-tie across the k-th place). ``no_drop`` runs a block with a
+    capacity that drops no pair."""
+
+    def __init__(self, torch):
+        from repro_torch.models import mlp
+
+        self.torch, self.mlp, self.own = torch, mlp, mlp.route
+        self.mode, self.calls, self.at = None, [], 0
+        self.flips = self.tokens = 0
+        mlp.route = self._route
+
+    def close(self) -> None:
+        self.mlp.route = self.own
+
+    def _route(self, probs, k, capacity):
+        torch = self.torch
+        out = self.own(probs, k, capacity)
+        if self.mode == "record":
+            self.calls.append(out[1])
+        elif self.mode == "replay":
+            want = self.calls[self.at]
+            self.at += 1
+            same = torch.sort(out[1], -1).values == torch.sort(want, -1).values
+            self.flips += int((~same.all(-1)).sum())
+            self.tokens += same[..., 0].numel()
+            # the slots of the recorded choices: rank them k…1, the rest 0
+            ranks = torch.arange(k, 0, -1, dtype=probs.dtype, device=probs.device)
+            fake = torch.zeros_like(probs).scatter_(-1, want, ranks.expand_as(want).contiguous())
+            _, _, pos, keep = self.own(fake, k, capacity)
+            top_p = torch.gather(probs, -1, want)
+            top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+            return top_p, want, pos, keep
+        return out
+
+    @contextlib.contextmanager
+    def recording(self):
+        self.mode, self.calls = "record", []
+        try:
+            yield
+        finally:
+            self.mode = None
+
+    @contextlib.contextmanager
+    def replaying(self):
+        self.mode, self.at, self.flips, self.tokens = "replay", 0, 0, 0
+        try:
+            yield
+        finally:
+            self.mode = None
+        if self.at != len(self.calls):
+            fail(f"MoE replay took {self.at} routing calls of {len(self.calls)} recorded")
+
+    @contextlib.contextmanager
+    def no_drop(self, model):
+        cfg = model.cfg
+        moe = dataclasses.replace(cfg.moe, capacity_factor=float(
+            cfg.moe.num_experts / cfg.moe.top_k) + 1.0)
+        model.cfg = dataclasses.replace(cfg, moe=moe)
+        try:
+            yield
+        finally:
+            model.cfg = cfg
+
+    def summary(self) -> str:
+        return (f"expert sets the torch composition would choose otherwise: {self.flips} "
+                f"of {self.tokens} (layer, token) routings ({self.flips / max(self.tokens, 1):.3%});"
+                " it takes the kernel run's")
 
 
 def serve_phase(torch, np, K, check, peaks, dev) -> tuple:
@@ -889,6 +1021,224 @@ def mamba_phase(torch, K, check, dev) -> dict:
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+def train_phase(np, torch, K, telemetry, card, checked_buckets, dev) -> dict:
+    """Phase 10, the paper's use case: AMT tunes real training of
+    granite-moe-1b-a400m at its full published widths and depth. (m) serve
+    it with the kernels (counted) and hold it against the torch composition;
+    train ten steps; restart from a checkpoint bit for bit at two layers.
+    (n) an 8-trial BO tuning job of full-width training trials under the
+    median rule. Returns {"serve": (m)'s serving counts, "tune": (n)'s}."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (BOConfig, BOSuggester, MedianRule, Tuner,
+                                  TuningJobConfig)
+    from repro_torch.core.history import bucket_size
+    from repro_torch.core.scheduler import ThreadBackend
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch.train import build_objective, default_search_space
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.training.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.training.train_step import init_train_state, train_state_of
+
+    cfg = get_config(GRANITE_ARCH)
+    print(f"phase 10 on {card}: {GRANITE_ARCH}, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of {cfg.moe.d_expert}, "
+          f"vocab {cfg.vocab_size}", flush=True)
+
+    # (m) serve: 24 flash_attention launches a prefill; the torch
+    # composition takes the kernel run's expert choices (MoERouting)
+    t0 = time.perf_counter()
+    routing = MoERouting(torch)
+    try:
+        serve_launches, model, _ = serve_model(
+            torch, K, GRANITE_ARCH, GRANITE_PARAMS,
+            {"flash_attention": cfg.layer_kinds().count("attn")}, GRANITE_BF16_TOL,
+            dev, f32_tol=F32_SERVE_TOL, routing=routing)
+    finally:
+        routing.close()
+    del model
+    torch.cuda.empty_cache()
+    print(f"phase 10 (m) serve on {card}: passed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # (m) train: ten steps at the published widths and depth (microbatches
+    # 2, remat on), AdamW lr 1e-3, warmup 2, total 10
+    t0 = time.perf_counter()
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    ds = SyntheticLMDataset(cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    model = build_model(cfg, impl="torch")
+    state = init_train_state(model, SERVE_SEED, opt)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = ds.batch(i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        print(f"  train step {i + 1}: loss {losses[-1]:.6f} (ce {float(metrics['ce']):.6f}, "
+              f"aux {float(metrics['aux']):.6f}), grad_norm {norms[-1]:.6f}, lr "
+              f"{float(metrics['lr']):.3e}, {step_ms[-1]:.3f} ms", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(step_ms[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"phase 10 (m) train on {card}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"tokens ({cfg.microbatches} microbatches, remat {cfg.remat}); step median over "
+          f"steps 3-{TRAIN_STEPS} {med:.3f} ms (min {min(step_ms[2:]):.3f}, max "
+          f"{max(step_ms[2:]):.3f}), {tokens * 1e3 / med:.1f} tokens/s; peak memory "
+          f"{peak / 1e9:.2f} GB; loss {losses[0]:.6f} -> {losses[-1]:.6f}", flush=True)
+    if not all(math.isfinite(v) for v in losses + norms) or min(norms) <= 0:
+        fail("train: a loss or grad_norm not finite, or a zero gradient")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the last loss {losses[-1]} is not below the first {losses[0]}")
+    device_profile(torch, "train step", lambda: step(state, ds.batch(TRAIN_STEPS)), top=20)
+    del model, state, step
+    torch.cuda.empty_cache()
+    print(f"phase 10 (m) train: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (m) restart, at full width and 2 layers under deterministic
+    # algorithms: 6 steps straight against 3 steps, a checkpoint, a fresh
+    # model loaded from it and 3 more steps; parameters, moments and step
+    # bit for bit
+    t0 = time.perf_counter()
+    small = dataclasses.replace(cfg, num_layers=2)
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight = build_model(small, impl="torch")
+        s_state = init_train_state(straight, SERVE_SEED, opt)
+        s_step = make_train_step(straight, opt)
+        for i in range(6):
+            s_state, _ = s_step(s_state, ds.batch(i))
+        first = build_model(small, impl="torch")
+        f_state = init_train_state(first, SERVE_SEED, opt)
+        f_step = make_train_step(first, opt)
+        for i in range(3):
+            f_state, _ = f_step(f_state, ds.batch(i))
+        with tempfile.TemporaryDirectory() as tmp:
+            path = save_checkpoint(tmp, 3, f_state, cfg=small)
+            size = os.path.getsize(path)
+            del first, f_state, f_step
+            resumed = build_model(small, impl="torch")
+            r_state, _ = load_checkpoint(tmp, 3, train_state_of(resumed.init(SERVE_SEED + 1), opt),
+                                         cfg=small)
+        r_step = make_train_step(resumed, opt)
+        for i in range(3, 6):
+            r_state, _ = r_step(r_state, ds.batch(i))
+        torch.cuda.synchronize()
+        bad = [name for name in s_state.params
+               if not (torch.equal(s_state.params[name], r_state.params[name])
+                       and torch.equal(s_state.opt["m"][name], r_state.opt["m"][name])
+                       and torch.equal(s_state.opt["v"][name], r_state.opt["v"][name]))]
+        steps_equal = int(s_state.opt["step"]) == int(r_state.opt["step"]) == 6
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"phase 10 (m) restart on {card}: 2 layers, {straight.num_params()} parameters, "
+          f"checkpoint {size / 1e9:.3f} GB; 6 steps straight vs 3 + checkpoint + 3: "
+          f"{len(s_state.params) - len(bad)} of {len(s_state.params)} parameters with m and v "
+          f"bit for bit, step {int(r_state.opt['step'])}, in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if bad or not steps_equal:
+        fail(f"restart: not bit for bit ({bad[:4]}, steps equal {steps_equal})")
+    del straight, s_state, s_step, resumed, r_state, r_step
+    torch.cuda.empty_cache()
+
+    # (n) the tuning job: 8 full-width training trials, 2 in flight, the
+    # median rule, BO decisions on the kernels (fit_backend "kernel" puts
+    # slice_chain on the path)
+    t0 = time.perf_counter()
+    # the trials' common start: the eval loss of the seeded, untrained model
+    # on the launcher's held-out batch
+    start = build_model(cfg, impl="torch").init(0)
+    eval_batch = SyntheticLMDataset(cfg.vocab_size, seq_len=64, global_batch=8,
+                                    seed=0).batch(10_000)
+    with torch.no_grad():
+        start_loss, start_parts = start.loss_fn(eval_batch)
+        start_loss, start_ce = float(start_loss), float(start_parts["ce"])
+    del start
+    torch.cuda.empty_cache()
+    space = default_search_space()
+    objective = build_objective(GRANITE_ARCH, steps=TUNE_STEPS, eval_every=TUNE_EVERY,
+                                full_config=True)
+    backend = ThreadBackend(max_workers=2)
+    tuner = Tuner(space, objective,
+                  BOSuggester(space, BOConfig(num_init=3, fit_backend="kernel").fast(), seed=0),
+                  backend, TuningJobConfig(max_trials=TUNE_TRIALS, max_parallel=2),
+                  stopping_rule=MedianRule())
+    telemetry.get().reset()
+    telemetry.set_enabled(True)
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    try:
+        res = tuner.run()
+    finally:
+        backend.shutdown()
+    torch.cuda.synchronize()
+    tune_launches = dict(K.LAUNCHES)
+    telemetry.set_enabled(False)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    by_id = {}
+    for ev in telemetry.get().trace_events():
+        if ev.get("kind") == "span":
+            by_id[ev["span_id"]] = ev
+
+    def decision_of(ev):
+        up = by_id.get(ev["parent_id"])
+        while up is not None and up["name"] != "suggest.decide":
+            up = by_id.get(up["parent_id"])
+        return None if up is None else up["span_id"]
+
+    posts = [ev for ev in by_id.values() if ev["name"] == "suggest.posterior"]
+    gp_ids = {decision_of(ev) for ev in posts} - {None}
+    dec = sorted(by_id[i]["dur"] * 1e3 for i in gp_ids)
+    print(f"phase 10 (n) tuning job on {card}: {len(res.trials)} trials in {wall:.1f} s, "
+          f"{res.num_early_stopped} stopped early, {res.num_failed_attempts} failed "
+          f"attempts, best eval loss {res.best_objective:.6f} against the untrained "
+          f"model's {start_loss:.6f} (cross-entropy {start_ce:.6f}; ln V = "
+          f"{math.log(cfg.vocab_size):.6f}); peak memory {peak / 1e9:.2f} GB", flush=True)
+    for t in res.trials:
+        hp = ", ".join(f"{k} {v:.4g}" for k, v in t.config.items())
+        took = (t.end_time - t.start_time) if t.end_time is not None and t.start_time is not None else math.nan
+        print(f"  trial {t.trial_id}: {t.state}, {len(t.curve)} evals, curve "
+              f"{[round(v, 4) for v in t.curve]}, {took:.1f} s; {hp}", flush=True)
+    if len(dec) and len(dec) == len(gp_ids):
+        print(f"  GP decisions {len(dec)}: p50 {statistics.median(dec):.2f} ms, max "
+              f"{dec[-1]:.2f} ms; launches {tune_launches}", flush=True)
+    if len(res.trials) != TUNE_TRIALS or res.num_failed_attempts:
+        fail(f"tuning job: {len(res.trials)} trials, {res.num_failed_attempts} failed attempts")
+    if any(t.state not in ("COMPLETED", "STOPPED") for t in res.trials):
+        fail("tuning job: a trial neither completed nor stopped")
+    if not all(math.isfinite(v) for t in res.trials for v in t.curve):
+        fail("tuning job: a reported eval loss is not finite")
+    if not res.best_objective < start_loss:
+        fail(f"tuning job: best eval loss {res.best_objective} not below the untrained "
+             f"model's {start_loss}")
+    if not dec:
+        fail("tuning job: no GP decision")
+    if tune_launches["acq_score"] != 2 * len(dec) or tune_launches["slice_chain"] > len(dec) \
+            or tune_launches["slice_chain"] == 0 or tune_launches["matern52_operand"] == 0:
+        fail(f"tuning job: launches {tune_launches} for {len(dec)} GP decisions")
+    ns = [ev["attrs"]["n"] for ev in posts]
+    buckets = {bucket_size(n) for n in ns}
+    if not buckets <= checked_buckets["acq_score"]:
+        fail(f"tuning job: acq_score at buckets {sorted(buckets)} not all held in phase 2")
+    print(f"phase 10 (n): {len(dec)} GP decisions, acq_score {tune_launches['acq_score']} "
+          f"({tune_launches['acq_score'] / len(dec):.1f} a decision), slice_chain "
+          f"{tune_launches['slice_chain']} ({tune_launches['slice_chain'] / len(dec):.2f}), "
+          f"matern52_operand {tune_launches['matern52_operand']}; rows {min(ns)}..{max(ns)}, "
+          f"buckets {sorted(buckets)}; {wall:.1f} s", flush=True)
+    return {"serve": serve_launches, "tune": tune_launches}
 
 
 def section5_phase(np, torch, K, telemetry, space, objective, paper, drive, run_job,
@@ -1468,6 +1818,9 @@ def main() -> None:
         fail(f"numpy/torch missing: {exc}")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA card")
+    # phase 10's restart check runs cuBLAS under deterministic algorithms,
+    # which needs this set before CUDA initialises
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         from repro_torch import kernels as K
         from repro_torch.kernels import _build
@@ -2451,6 +2804,12 @@ def main() -> None:
     mamba_launches = mamba_phase(torch, K, check, dev)
     phase_done("7 mamba path", t_phase)
 
+    # 10. AMT tunes real training: granite-moe-1b-a400m served, trained,
+    # restarted, and tuned by a BO job of training trials
+    t_phase = time.perf_counter()
+    train_launches = train_phase(np, torch, K, telemetry, card, checked_buckets, dev)
+    phase_done("10 training and the tuning job", t_phase)
+
     path_launches = {"main": main_launches, "multi": multi_launches, "kb": kb_launches,
                      "serve": serve_launches, "decode_check": decode_launches,
                      "mamba": mamba_launches}
@@ -2469,6 +2828,8 @@ def main() -> None:
             "s5_launches": {path: counts[kname] for path, counts in s5_launches.items()},
             "large_n_launches": {path: counts[kname]
                                  for path, counts in large_launches.items()},
+            "train_launches": {path: counts[kname]
+                               for path, counts in train_launches.items()},
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

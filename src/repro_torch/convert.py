@@ -12,6 +12,10 @@ the resulting numpy arrays into the port's tensors on a device:
 * ``lm_params_from_numpy`` / ``load_lm_params`` — the JAX ``Model.init``
   tree of an LM (stacked ``stack/slot{i}_{kind}`` periods and
   ``leftover/layer{i}_{kind}`` layers) → the port's per-layer parameters;
+  ``lm_params_to_numpy`` the inverse, and ``lm_param_paths`` where each of
+  the port's parameters sits in the JAX tree;
+* ``opt_state_to_numpy`` / ``opt_state_from_numpy`` — the port's AdamW
+  state (``m``, ``v``, ``step``) ↔ the JAX package's ``adamw_init`` tree;
 * ``lm_cache_to_numpy`` / ``lm_cache_from_numpy`` — the port's per-layer
   decode caches ↔ the JAX package's cache tree.
 
@@ -40,7 +44,11 @@ __all__ = [
     "posterior_from_numpy",
     "posterior_to_numpy",
     "lm_params_from_numpy",
+    "lm_params_to_numpy",
+    "lm_param_paths",
     "load_lm_params",
+    "opt_state_to_numpy",
+    "opt_state_from_numpy",
     "lm_cache_to_numpy",
     "lm_cache_from_numpy",
 ]
@@ -142,6 +150,73 @@ def lm_params_from_numpy(cfg, tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         for key, val in block.items():
             out[f"blocks.{layer}.{key}"] = val if period is None else val[period]
     return out
+
+
+def lm_param_paths(cfg, names) -> Dict[str, tuple]:
+    """{port parameter name: (path of keys in the JAX tree, period or
+    None)}: ``blocks.{layer}.{a}.{b}`` of a stacked slot is
+    (``stack``, ``slot{i}_{kind}``, a, b) at index ``period`` of the leading
+    axis; a leftover layer's and the top-level names have no period."""
+    layers = {layer: (group, name, period) for layer, group, name, period in _layer_slots(cfg)}
+    out = {}
+    for n in names:
+        if n.startswith("blocks."):
+            _, layer, rest = n.split(".", 2)
+            group, slot, period = layers[int(layer)]
+            out[n] = ((group, slot) + tuple(rest.split(".")), period)
+        else:
+            out[n] = (tuple(n.split(".")), None)
+    return out
+
+
+def _put(tree: Dict[str, Any], path: tuple, val) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = val
+
+
+def lm_params_to_numpy(cfg, named: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``lm_params_from_numpy``: ``{port parameter name:
+    tensor}`` (or any same-named dict: gradients, AdamW moments) → the JAX
+    package's nested tree of numpy arrays, each stacked slot's layers
+    stacked over the periods (bf16 widened to float32)."""
+    tree: Dict[str, Any] = {}
+    stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for name, (path, period) in lm_param_paths(cfg, named).items():
+        val = named[name]
+        arr = _host(val) if isinstance(val, torch.Tensor) else np.asarray(val)
+        if period is None:
+            _put(tree, path, arr)
+        else:
+            stacked.setdefault(path, {})[period] = arr
+    for path, per in stacked.items():
+        _put(tree, path, np.stack([per[i] for i in range(cfg.num_periods)]))
+    return tree
+
+
+def opt_state_to_numpy(cfg, opt: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's AdamW state → the JAX package's ``adamw_init`` tree:
+    {"m": tree, "v": tree, "step": int32}, numpy (bf16 moments widened to
+    float32)."""
+    return {"m": lm_params_to_numpy(cfg, opt["m"]),
+            "v": lm_params_to_numpy(cfg, opt["v"]),
+            "step": np.asarray(_host(torch.as_tensor(opt["step"])), dtype=np.int32)}
+
+
+def opt_state_from_numpy(cfg, tree: Mapping[str, Any], device,
+                         moment_dtype: str = "float32") -> Dict[str, Any]:
+    """The JAX package's AdamW state tree (leaves convert with
+    ``np.asarray``) → the port's: ``m`` in ``moment_dtype``, ``v`` float32,
+    ``step`` an int32 scalar, on ``device``."""
+    device = resolve_device(device)
+
+    def tensors(sub, dtype):
+        return {k: torch.as_tensor(np.array(a, dtype=np.float32)).to(device=device, dtype=dtype)
+                for k, a in lm_params_from_numpy(cfg, sub).items()}
+
+    return {"m": tensors(tree["m"], getattr(torch, moment_dtype)),
+            "v": tensors(tree["v"], torch.float32),
+            "step": torch.as_tensor(np.asarray(tree["step"], dtype=np.int32)).to(device)}
 
 
 def load_lm_params(model, tree: Mapping[str, Any]):

@@ -7,8 +7,7 @@ ASHA); MAP-II or slice-sampled GPHPs; and the multi-job selection service
 (GPHP pool, factor arena, sibling warm start, engine snapshots). Unlike
 the reference's package, importing this one flips no global switch: every
 tensor names its dtype (float64 for the GP/BO numerics) and its device.
-The large-n backends and the socket replicas wait (ROADMAP.md, queue A
-items 10 and 11).
+The socket replicas live in ``repro_torch.distributed``.
 
 Public API:
     SearchSpace / Continuous / Integer / Categorical   (§4.1, §5.1)

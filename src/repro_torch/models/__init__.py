@@ -1,5 +1,6 @@
 """The LM workload's models in PyTorch: the port of ``repro.models``
-(dense and sliding-window attention, RG-LRU blocks, dense MLPs)."""
+(dense and sliding-window attention, Mamba and RG-LRU blocks, dense and MoE
+MLPs), served and trained."""
 
 from repro_torch.models.model import Model, build_model
 

@@ -1,14 +1,14 @@
-"""Decoder block of the port: token mixer (attn/swa/mamba/rglru) + dense MLP.
+"""Decoder block of the port: token mixer (attn/swa/mamba/rglru) + MLP
+(dense or MoE).
 
 One *block* = pre-norm mixer + residual, then (if the arch has an FFN)
 pre-norm MLP + residual. Gemma-3 style ``sandwich_norm`` adds post-norms on
-both sub-block outputs. The MoE FFN is not ported yet and raises (ROADMAP
-A12).
+both sub-block outputs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -25,7 +25,7 @@ from repro_torch.models.mamba import (
     mamba_fwd,
     mamba_params,
 )
-from repro_torch.models.mlp import mlp_fwd, mlp_params
+from repro_torch.models.mlp import mlp_fwd, mlp_params, moe_fwd, moe_params
 from repro_torch.models.rglru import (
     init_rglru_cache,
     rglru_decode,
@@ -56,7 +56,7 @@ def block_params(cfg, kind: str) -> ParamModule:
         p.declare("ln1_post", (d,), init="zeros")
     if _has_mlp(cfg):
         p.declare("ln2", (d,), init="zeros")
-        p.mlp = mlp_params(cfg)
+        p.mlp = moe_params(cfg) if cfg.moe is not None else mlp_params(cfg)
         if cfg.sandwich_norm:
             p.declare("ln2_post", (d,), init="zeros")
     return p
@@ -69,12 +69,18 @@ def _mixer_theta(cfg, kind: str) -> float:
 
 
 def _mlp_residual(x, p, cfg):
+    """The FFN sub-block; returns (x, the MoE aux loss or None)."""
+    aux = None
     if _has_mlp(cfg):
-        h = mlp_fwd(rms_norm(x, p.ln2, cfg.norm_eps), p.mlp, cfg)
+        h = rms_norm(x, p.ln2, cfg.norm_eps)
+        if cfg.moe is not None:
+            h, aux = moe_fwd(h, p.mlp, cfg)
+        else:
+            h = mlp_fwd(h, p.mlp, cfg)
         if cfg.sandwich_norm:
             h = rms_norm(h, p.ln2_post, cfg.norm_eps)
         x = x + h
-    return x
+    return x, aux
 
 
 def block_fwd(
@@ -84,11 +90,13 @@ def block_fwd(
     kind: str,
     positions: torch.Tensor,
     impl: str = "kernel",
-) -> Tuple[torch.Tensor, Any]:
-    """Returns (x, mixer state): (k, v) for attention blocks, the decode
-    cache {"conv", "ssm"} for mamba and {"conv", "h"} for rglru blocks. The
-    prefill turns the state into the block's decode cache; the plain forward
-    drops it."""
+) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+    """Returns (x, mixer state, aux loss): the state is (k, v) for attention
+    blocks, the decode cache {"conv", "ssm"} for mamba and {"conv", "h"} for
+    rglru blocks — the prefill turns it into the block's decode cache, the
+    training forward drops it; the aux loss is the MoE block's
+    load-balancing loss (float32), None for a dense FFN, where the JAX
+    package returns 0."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind in ("attn", "swa"):
         window = cfg.window if kind == "swa" else 0
@@ -102,7 +110,8 @@ def block_fwd(
         h, state = rglru_fwd(h, p.mixer, cfg, impl=impl)
     if cfg.sandwich_norm:
         h = rms_norm(h, p.ln1_post, cfg.norm_eps)
-    return _mlp_residual(x + h, p, cfg), state
+    x, aux = _mlp_residual(x + h, p, cfg)
+    return x, state, aux
 
 
 # ---------------------------------------------------------------------------
@@ -135,4 +144,4 @@ def block_decode(
         h, cache = rglru_decode(h, p.mixer, cfg, cache)
     if cfg.sandwich_norm:
         h = rms_norm(h, p.ln1_post, cfg.norm_eps)
-    return _mlp_residual(x + h, p, cfg), cache
+    return _mlp_residual(x + h, p, cfg)[0], cache

@@ -45,8 +45,8 @@ class ParamModule(nn.Module):
     initialisation rules (``normal`` — a standard normal truncated to
     [−2, 2], times ``scale`` — ``uniform`` on [−scale, scale], ``zeros``,
     ``ones`` and ``constant``). Parameters are created on the ``meta``
-    device and carry no gradient: the port serves, it does not train
-    (ROADMAP A12)."""
+    device without gradients; ``training.train_step.train_state_of`` turns
+    them on for training."""
 
     def __init__(self) -> None:
         super().__init__()

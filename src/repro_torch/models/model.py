@@ -8,19 +8,22 @@ order — layer ``p·P + i`` is period ``p``'s slot ``i``, the leftover layers
 follow — and runs them in a Python loop; ``convert.lm_params_from_numpy``
 maps one layout onto the other. Caches are a list with one entry per layer.
 
-Public API (class ``Model``): ``init(seed)``, ``prefill`` (builds decode
-caches), ``decode_step`` (one token), ``init_cache``. Training (``loss_fn``)
-is not ported yet (ROADMAP A12). Prefill and decode run under
-``torch.inference_mode()``.
+Public API (class ``Model``): ``init(seed)``, ``loss_fn`` (training
+forward with CE + MoE aux loss, under autograd), ``prefill`` (builds decode
+caches), ``decode_step`` (one token), ``init_cache``. Prefill and decode run
+under ``torch.inference_mode()``. ``cfg.remat`` checkpoints each period of
+blocks while gradients are recorded (``torch.utils.checkpoint``), as the
+JAX package checkpoints each scanned period; the numbers stay the same.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
@@ -121,11 +124,51 @@ class Model(ParamModule):
         return torch.as_tensor(inputs, device=self.device)
 
     # -------------------------------------------------------------- forward
-    def _backbone(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """x: (B,S,D) → x after every block."""
-        for p, kind in zip(self.blocks, self.kinds):
-            x, _ = B.block_fwd(x, p, self.cfg, kind, positions, impl=self.impl)
-        return x
+    def _layers(self, first: int, last: int, x: torch.Tensor, aux: torch.Tensor,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Blocks ``first``…``last − 1`` on x, their aux losses added to aux
+        one after another (the JAX package's order)."""
+        for i in range(first, last):
+            x, _, a = B.block_fwd(x, self.blocks[i], self.cfg, self.kinds[i], positions,
+                                  impl=self.impl)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    def _backbone(self, x: torch.Tensor, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (B,S,D) → (x after every block, total aux loss float32). Each
+        full period of ``cfg.block_pattern`` is checkpointed under
+        ``cfg.remat`` while gradients are recorded; the leftover layers are
+        not (as in the JAX package, where they sit outside the scan)."""
+        cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        period = cfg.pattern_period
+        remat = cfg.remat and torch.is_grad_enabled()
+        for first in range(0, cfg.num_periods * period, period):
+            if remat:
+                x, aux = checkpoint(self._layers, first, first + period, x, aux, positions,
+                                    use_reentrant=False)
+            else:
+                x, aux = self._layers(first, first + period, x, aux, positions)
+        return self._layers(cfg.num_periods * period, cfg.num_layers, x, aux, positions)
+
+    def loss_fn(self, batch: Dict[str, Any]) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """batch: {"inputs": (B,S) int | (B,S,D), "labels": (B,S) int}
+        (numpy arrays or tensors). Mean token cross-entropy plus the MoE aux
+        loss; returns (loss, {"ce", "aux"}), float32 scalars on the model's
+        device, with the autograd graph when gradients are recorded."""
+        cfg = self.cfg
+        inputs = self._inputs(batch["inputs"])
+        labels = self._inputs(batch["labels"]).long()
+        bsz, seq = labels.shape
+        x = self._embed(inputs)
+        x, aux = self._backbone(x, self._positions(bsz, seq))
+        x = rms_norm(x, self.final_norm, cfg.norm_eps)
+        logits = self._head(x).float()
+        logz = torch.logsumexp(logits, dim=-1)  # (B,S)
+        true_logit = torch.gather(logits, -1, labels[..., None])[..., 0]
+        ce = torch.mean(logz - true_logit)
+        return ce + aux, {"ce": ce, "aux": aux}
 
     # --------------------------------------------------------------- decode
     def init_cache(self, batch: int, cache_len: int) -> List[Any]:
@@ -146,7 +189,7 @@ class Model(ParamModule):
             x = self._embed(inputs)
             caches = []
             for p, kind in zip(self.blocks, self.kinds):
-                x, state = B.block_fwd(x, p, cfg, kind, positions, impl=self.impl)
+                x, state, _ = B.block_fwd(x, p, cfg, kind, positions, impl=self.impl)
                 if kind in ("attn", "swa"):
                     window = cfg.window if kind == "swa" else 0
                     state = self._assemble_kv_cache(*state, seq, cache_len, window)
