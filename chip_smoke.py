@@ -136,17 +136,37 @@ of the JAX package. Phases:
    trial completed or stopped with finite reports, none failed, the best
    eval loss below the untrained model's, ``acq_score`` 2 launches and
    ``slice_chain`` at most 1 a GP decision at row buckets phase 2 held;
-   the trial table, the decisions' p50 and peak memory.
+   the trial table, the decisions' p50 and peak memory;
+11. sharding, mesh and dry-run (run after phase 10) — (o) granite-moe-1b-
+   a400m at full width and depth through ``make_local_mesh()`` = (1, 1)
+   over a real one-rank NCCL group, seeded as phase 10 seeds it, under
+   ``DEFAULT_RULES`` (the ``ShardCtx`` constraints and the ``local_map``
+   kernel calls live): phase 10's four 3000-token requests for 16 greedy
+   tokens with the kernels (24 ``flash_attention`` launches, one prefill),
+   and 3 + 3 training steps of 16 × 1024 tokens; the tokens, prefill
+   logits and KV caches, each step's metrics and every parameter after 3
+   steps bit for bit with the same run with no mesh; prefill ms, step
+   median and peak memory beside the run with no mesh and phase 10's;
+   (p) ``python -m repro_torch.launch.dryrun`` for qwen3-moe-235b-a22b ×
+   ``train_4k`` and × ``decode_32k`` on the 16×16 production mesh
+   (subprocesses on the card's host over a fake process group): status OK,
+   per-device parameter bytes equal to the rules' shape arithmetic, the
+   decode cell on its ``cache_seq="model"`` override, each record's
+   roofline terms on ``H100_SXM``, bottleneck, peak estimate and
+   ``fits_hbm``; (q) the dry-run of (o)'s training step on a (1, 1) mesh:
+   its per-device peak within 25% of (o)'s ``max_memory_allocated``, its
+   FLOPs beside ``model_flops``, the step's share of the bf16 peak.
 
 Launch counts are set to 0 just before each job of phases 4, 5, 8, 9 and
-10, the serving runs of phases 6, 7 and 10 and the flash-decode path, and
-read just after; each must launch every kernel of its path (jobs: and score only row
+10, the serving runs of phases 6, 7, 10 and 11 and the flash-decode path,
+and read just after; each must launch every kernel of its path (jobs: and score only row
 buckets that phase 2 held against the plain version). Prints one line per
 case (with the rate of the resource that bounds it and its share of the
 bound) and each phase's wall time, then a
 JSON line of per-kernel numbers (``launches`` from the kernel's own path,
 ``s5_launches`` from each path of phase 8, ``large_n_launches`` from each
-of phase 9, ``train_launches`` from (m)'s serving run and (n)'s job), then
+of phase 9, ``train_launches`` from (m)'s serving run and (n)'s job,
+``mesh_launches`` from phase 11 (o)'s serving run), then
 as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
 any failure — including no visible card.
@@ -174,8 +194,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 # special-function units, 16 per clock per SM on sm_90 (CUDA C++
 # Programming Guide, arithmetic instruction throughput), times the SM count
 # and the maximum SM clock the card reports.
+# The SXM part's "hbm" and "bf16" come from repro_torch.launch.roofline's
+# H100_SXM (the same data sheet), which main() reads once the port imports.
 PEAKS = {
-    "SXM": {"hbm": 3.35e12, "f64": 34e12, "f64_tc": 67e12, "f32": 67e12, "bf16": 989e12},
+    "SXM": {"f64": 34e12, "f64_tc": 67e12, "f32": 67e12},
     "PCIe": {"hbm": 2.0e12, "f64": 26e12, "f64_tc": 51e12, "f32": 51e12, "bf16": 756e12},
     "NVL": {"hbm": 3.9e12, "f64": 30e12, "f64_tc": 60e12, "f32": 60e12, "bf16": 835e12},
 }
@@ -382,6 +404,15 @@ GRANITE_ARCH = "granite-moe-1b-a400m"
 GRANITE_PARAMS = 1_334_628_352
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 1024, 16, 10
 TUNE_TRIALS, TUNE_STEPS, TUNE_EVERY = 8, 60, 10
+# Phase 11: granite's training through the (1, 1) mesh — steps held bit
+# for bit, then steps timed — and the production-mesh dry-run's cells. The
+# dry-run's per-device peak estimate must come within ESTIMATE_TOL of the
+# card's max_memory_allocated for the same step.
+MESH_TRAIN_STEPS, MESH_TIMED_STEPS = 3, 3
+DRYRUN_ARCH = "qwen3-moe-235b-a22b"
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_TIMEOUT = 400.0
+ESTIMATE_TOL = 0.25
 
 
 def band_pairs(s: int, window: int) -> int:
@@ -486,7 +517,8 @@ def serve_model(torch, K, arch, n_expected, expect, tol, dev, f32_tol=None, rout
     ``f32_tol``, then the same in float32: decode after prefill against the
     forward one token longer, and the prefill's logits and caches against
     the torch composition's. Returns (the serving run's launch counts, the
-    model, its caches right after the prefill)."""
+    model, its caches right after the prefill, {"prefill_ms", "step_ms"}:
+    the timed prefill and the median decode step)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.models.common import rms_norm
@@ -626,7 +658,7 @@ def serve_model(torch, K, arch, n_expected, expect, tol, dev, f32_tol=None, rout
     del caches, k_logits
     if f32_tol is not None:
         f32_checks(torch, K, model, prompt, tokens, f32_tol, routing)
-    return launches, model, snapshot
+    return launches, model, snapshot, {"prefill_ms": prefill_ms, "step_ms": step_med}
 
 
 def f32_checks(torch, K, model, prompt, tokens, tol, routing=None) -> None:
@@ -844,7 +876,7 @@ def serve_phase(torch, np, K, check, peaks, dev) -> tuple:
         del a, g, h, h_last
     torch.cuda.empty_cache()
 
-    launches, model, snapshot = serve_model(
+    launches, model, snapshot, _ = serve_model(
         torch, K, SERVE_ARCH, SERVE_PARAMS,
         {"flash_attention": cfg.layer_kinds().count("swa"),
          "rglru_scan": cfg.layer_kinds().count("rglru")}, SERVE_TOL, dev)
@@ -1014,7 +1046,7 @@ def mamba_phase(torch, K, check, dev) -> dict:
         del u, dt, a, b_t, c_t, h_last, h_plain
     torch.cuda.empty_cache()
 
-    launches, model, _ = serve_model(
+    launches, model, _, _ = serve_model(
         torch, K, MAMBA_ARCH, MAMBA_PARAMS,
         {"mamba_scan": cfg.layer_kinds().count("mamba")}, MAMBA_BF16_TOL, dev,
         f32_tol=F32_SERVE_TOL)
@@ -1029,7 +1061,9 @@ def train_phase(np, torch, K, telemetry, card, checked_buckets, dev) -> dict:
     it with the kernels (counted) and hold it against the torch composition;
     train ten steps; restart from a checkpoint bit for bit at two layers.
     (n) an 8-trial BO tuning job of full-width training trials under the
-    median rule. Returns {"serve": (m)'s serving counts, "tune": (n)'s}."""
+    median rule. Returns ({"serve": (m)'s serving counts, "tune": (n)'s},
+    {"prefill_ms", "step_ms": (m)'s serving times, "train_step_ms": the
+    train step median, "train_peak": its peak memory})."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -1055,7 +1089,7 @@ def train_phase(np, torch, K, telemetry, card, checked_buckets, dev) -> dict:
     t0 = time.perf_counter()
     routing = MoERouting(torch)
     try:
-        serve_launches, model, _ = serve_model(
+        serve_launches, model, _, serve_times = serve_model(
             torch, K, GRANITE_ARCH, GRANITE_PARAMS,
             {"flash_attention": cfg.layer_kinds().count("attn")}, GRANITE_BF16_TOL,
             dev, f32_tol=F32_SERVE_TOL, routing=routing)
@@ -1091,6 +1125,8 @@ def train_phase(np, torch, K, telemetry, card, checked_buckets, dev) -> dict:
               f"{float(metrics['lr']):.3e}, {step_ms[-1]:.3f} ms", flush=True)
     peak = torch.cuda.max_memory_allocated()
     med = statistics.median(step_ms[2:])
+    numbers = {"prefill_ms": serve_times["prefill_ms"], "step_ms": serve_times["step_ms"],
+               "train_step_ms": med, "train_peak": peak}
     tokens = TRAIN_BATCH * TRAIN_SEQ
     print(f"phase 10 (m) train on {card}: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
           f"tokens ({cfg.microbatches} microbatches, remat {cfg.remat}); step median over "
@@ -1238,7 +1274,290 @@ def train_phase(np, torch, K, telemetry, card, checked_buckets, dev) -> dict:
           f"{tune_launches['slice_chain']} ({tune_launches['slice_chain'] / len(dec):.2f}), "
           f"matern52_operand {tune_launches['matern52_operand']}; rows {min(ns)}..{max(ns)}, "
           f"buckets {sorted(buckets)}; {wall:.1f} s", flush=True)
-    return {"serve": serve_launches, "tune": tune_launches}
+    return {"serve": serve_launches, "tune": tune_launches}, numbers
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start_dryruns(out_dir: str) -> dict:
+    """(p) and (q) as subprocesses of the port's dry-run (a process has one
+    default group; this one's is the card's NCCL group): qwen3-moe-235b-a22b
+    × ``DRYRUN_SHAPES`` on the 16×16 production mesh through the CLI, and
+    granite's phase-10 training step on a (1, 1) mesh through
+    ``lower_cell``. Started together; ``finish_dryruns`` collects them."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(HERE, "src"), env.get("PYTHONPATH", "")) if p)
+    procs = {}
+    for shape in DRYRUN_SHAPES:
+        log = open(os.path.join(out_dir, f"{shape}.log"), "w")
+        procs[shape] = (subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", DRYRUN_ARCH,
+             "--shape", shape, "--out", out_dir],
+            stdout=log, stderr=subprocess.STDOUT, text=True, env=env, cwd=HERE), log)
+    script = (
+        "import json\n"
+        "from repro_torch.configs.base import ShapeConfig\n"
+        "from repro_torch.launch.dryrun import lower_cell\n"
+        f"r = lower_cell({GRANITE_ARCH!r}, 'train_1k', mesh_shape=(1, 1),\n"
+        f"               shape=ShapeConfig('train_1k', {TRAIN_SEQ}, {TRAIN_BATCH}, 'train'))\n"
+        f"json.dump(r, open({os.path.join(out_dir, 'granite_train.json')!r}, 'w'))\n")
+    log = open(os.path.join(out_dir, "granite.log"), "w")
+    procs["granite"] = (subprocess.Popen([sys.executable, "-c", script], stdout=log,
+                                         stderr=subprocess.STDOUT, text=True, env=env,
+                                         cwd=HERE), log)
+    return procs
+
+
+def stop_dryruns(procs: dict) -> None:
+    """Kill the dry-run subprocesses still running and close their logs."""
+    for proc, log in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        log.close()
+
+
+def finish_dryruns(procs: dict, out_dir: str) -> dict:
+    """Wait for the dry-run subprocesses (all are killed if any is still
+    running after ``DRYRUN_TIMEOUT`` s from now) and read their records."""
+    deadline = time.perf_counter() + DRYRUN_TIMEOUT
+    try:
+        for key, (proc, _) in procs.items():
+            try:
+                proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                fail(f"(p) dry-run {key} still running after {DRYRUN_TIMEOUT} s")
+    finally:
+        stop_dryruns(procs)
+    records = {}
+    for key, (proc, log) in procs.items():
+        if proc.returncode != 0:
+            with open(log.name) as f:
+                tail = f.read()[-3000:]
+            fail(f"(p) dry-run {key} exited with {proc.returncode}:\n{tail}")
+        path = (os.path.join(out_dir, "granite_train.json") if key == "granite" else
+                os.path.join(out_dir, f"{DRYRUN_ARCH}__{key}__pod1.json"))
+        with open(path) as f:
+            records[key] = json.load(f)
+    return records
+
+
+def mesh_phase(torch, K, card, dev, phase10) -> dict:
+    """Phase 11, sharding on the card. (o) granite-moe-1b-a400m at full
+    width and depth through ``make_local_mesh()`` = (1, 1) over a real
+    one-rank NCCL group, seeded as phase 10 seeds it, with ``DEFAULT_RULES``
+    (``ShardCtx`` constraints and ``local_map`` kernel calls live): phase
+    10's four 3000-token requests served for 16 greedy tokens with the
+    kernels (24 ``flash_attention`` launches, one prefill) and trained for
+    ``MESH_TRAIN_STEPS`` steps of 16 × 1024 tokens; both held bit for bit
+    against the same run with no mesh — tokens, prefill logits and KV
+    caches, each step's loss, ce, aux and grad_norm, every parameter after
+    the steps. (p) the production-mesh dry-run of qwen3-moe-235b-a22b
+    (``train_4k`` and ``decode_32k`` on 16×16) as subprocesses on the
+    card's host: status OK, per-device parameter bytes equal to the sharding
+    rules' shape arithmetic, the decode cell on its ``cache_seq="model"``
+    override. (q) the dry-run's estimate of (o)'s training step, traced on a
+    (1, 1) mesh, against the card: the estimated per-device peak within
+    ``ESTIMATE_TOL`` of ``max_memory_allocated``; the traced FLOPs beside
+    ``model_flops``. Returns (o)'s serving launch counts."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.distributed.sharding import shard_shape
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.roofline import H100_SXM, model_flops
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, greedy_generate, make_prefill, make_train_step
+    from repro_torch.training.train_step import init_train_state
+
+    cfg = get_config(GRANITE_ARCH)
+    B, S, NEW = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    opt = AdamWConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    ds = SyntheticLMDataset(cfg.vocab_size, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    n_steps = MESH_TRAIN_STEPS + MESH_TIMED_STEPS
+
+    def whole(t):
+        """A DTensor's whole value (on a one-rank mesh, its local tensor)."""
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def serve(mesh):
+        """(tokens, prefill logits, caches, launches, prefill ms) of the
+        kernel run, on ``mesh`` or none."""
+        model = build_model(cfg, impl="kernel", mesh=mesh).init(SERVE_SEED)
+        gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+        prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+        K.reset_launch_counts()
+        tokens = greedy_generate(model, prompt, NEW, S + NEW)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+        prefill = make_prefill(model, S + NEW)
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = prefill(prompt)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        caches = [tuple(whole(t) for t in c) for c in caches]
+        del model
+        return tokens, whole(logits), caches, launches, statistics.median(ms)
+
+    def train(mesh):
+        """(per-step metrics, parameters after MESH_TRAIN_STEPS steps on the
+        host, median ms of the steps after them, peak memory)."""
+        model = build_model(cfg, impl="torch", mesh=mesh)
+        state = init_train_state(model, SERVE_SEED, opt)
+        step = make_train_step(model, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, ms, params = [], [], None
+        for i in range(n_steps):
+            batch = ds.batch(i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i < MESH_TRAIN_STEPS:
+                metrics.append({k: whole(v).cpu() for k, v in m.items()})
+            if i + 1 == MESH_TRAIN_STEPS:
+                params = {k: whole(p).detach().cpu() for k, p in state.params.items()}
+        peak = torch.cuda.max_memory_allocated()
+        del model, state, step
+        torch.cuda.empty_cache()
+        return metrics, params, statistics.median(ms[MESH_TRAIN_STEPS:]), peak
+
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh("cuda")
+        print(f"phase 11 on {card}: {GRANITE_ARCH} on mesh {tuple(mesh.shape)} "
+              f"{mesh.mesh_dim_names} over a one-rank {dist.get_backend()} group", flush=True)
+
+        # (o) serve: no mesh, then the mesh; bit for bit
+        t0 = time.perf_counter()
+        ref = serve(None)
+        torch.cuda.empty_cache()
+        got = serve(mesh)
+        torch.cuda.empty_cache()
+        launches = got[3]
+        n_attn = cfg.layer_kinds().count("attn")
+        tok_eq = torch.equal(ref[0], got[0])
+        logit_d = float((ref[1] - got[1]).abs().max())
+        cache_d = max(float((a - b).abs().max()) for ra, rb in zip(ref[2], got[2])
+                      for a, b in zip(ra, rb))
+        print(f"phase 11 (o) serve on {card}: mesh launches {launches}; tokens "
+              f"{'equal' if tok_eq else 'DIFFER'}, prefill logits max |Δ| {logit_d:.3e}, KV "
+              f"caches max |Δ| {cache_d:.3e} against the run with no mesh; prefill "
+              f"{got[4]:.3f} ms on the mesh, {ref[4]:.3f} ms without (phase 10's "
+              f"{phase10['prefill_ms']:.3f} ms); {time.perf_counter() - t0:.1f} s", flush=True)
+        for kname in K.KERNEL_NAMES:
+            want = n_attn if kname == "flash_attention" else 0
+            if launches[kname] != want:
+                fail(f"(o) serve on the mesh: {launches[kname]} {kname} launches, not {want}")
+        if not tok_eq or logit_d != 0.0 or cache_d != 0.0:
+            fail("(o) serve: the mesh run is not bit for bit the run with no mesh")
+        del ref, got
+
+        # (p) and (q) trace on the host meanwhile: the timed steps replay
+        # one CUDA graph and wait on the card, not on the host
+        t_dry = time.perf_counter()
+        procs = start_dryruns(tmp)
+        try:
+            # (o) train: no mesh, then the mesh; bit for bit
+            t0 = time.perf_counter()
+            r_met, r_par, r_ms, r_peak = train(None)
+            m_met, m_par, m_ms, m_peak = train(mesh)
+        except BaseException:
+            stop_dryruns(procs)
+            raise
+        for i, (a, b) in enumerate(zip(r_met, m_met)):
+            print(f"  step {i + 1}: loss {float(b['loss']):.6f} grad_norm "
+                  f"{float(b['grad_norm']):.6f} on the mesh; "
+                  + ", ".join(f"{k} {'equal' if torch.equal(a[k], b[k]) else 'DIFFERS'}"
+                              for k in sorted(a)), flush=True)
+        bad_m = [(i, k) for i, (a, b) in enumerate(zip(r_met, m_met)) for k in a
+                 if not torch.equal(a[k], b[k])]
+        bad_p = [k for k in r_par if not torch.equal(r_par[k], m_par[k])]
+        print(f"phase 11 (o) train on {card}: {MESH_TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ} tokens ({cfg.microbatches} microbatches, remat), then "
+              f"{MESH_TIMED_STEPS} timed; {len(r_par) - len(bad_p)} of {len(r_par)} parameters "
+              f"bit for bit; step median {m_ms:.3f} ms on the mesh, {r_ms:.3f} ms without "
+              f"(phase 10's {phase10['train_step_ms']:.3f} ms); peak memory "
+              f"{m_peak / 1e9:.2f} GB on the mesh, {r_peak / 1e9:.2f} GB without (phase 10's "
+              f"{phase10['train_peak'] / 1e9:.2f} GB); {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        if bad_m or bad_p:
+            stop_dryruns(procs)
+            fail(f"(o) train: the mesh run is not bit for bit ({bad_m[:4]}, {bad_p[:4]})")
+        del r_par, m_par
+    finally:
+        dist.destroy_process_group()
+
+    # (p) + (q): the dry-runs, traced on the host since (o)'s training began
+    records = finish_dryruns(procs, tmp)
+    print(f"phase 11 (p)/(q) dry-runs on {card}'s host: {time.perf_counter() - t_dry:.1f} s "
+          f"from their start", flush=True)
+    qwen = get_config(DRYRUN_ARCH)
+    prod = {"data": 16, "model": 16}
+    specs = build_model(qwen, impl="torch", device="cpu", mesh=prod).param_specs()
+    shapes = build_model(qwen, impl="torch", device="cpu").abstract_params()
+    want_bytes = sum(math.prod(shard_shape(shapes[n].shape, s, prod)) * shapes[n].element_size()
+                     for n, s in specs.items())
+    for shape in DRYRUN_SHAPES:
+        r = records[shape]
+        t = r.get("roofline", {})
+        print(f"phase 11 (p) {DRYRUN_ARCH} × {shape} on {r['mesh']} ({r.get('card')}): "
+              f"status {r['status']}, rules {r.get('rules')}, microbatches "
+              f"{r.get('microbatches')}, trace {r.get('trace_s')} s; per device: params "
+              f"{r.get('param_bytes')} B (shape arithmetic {want_bytes}), FLOPs "
+              f"{r.get('flops'):.6e}, bytes {r.get('bytes'):.6e}, collective bytes "
+              f"{r.get('collective_bytes')}; roofline on {r.get('target')}: compute "
+              f"{t.get('compute_s'):.6f} s, memory {t.get('memory_s'):.6f} s, collective "
+              f"{t.get('collective_s'):.6f} s → {t.get('bottleneck')}-bound, useful "
+              f"{t.get('useful_ratio'):.4f}; device_bytes_estimate "
+              f"{r.get('device_bytes_estimate')} of {r.get('hbm_capacity')}, fits_hbm "
+              f"{r.get('fits_hbm')}", flush=True)
+        if r["status"] != "OK":
+            fail(f"(p) {DRYRUN_ARCH} × {shape}: status {r['status']}")
+        for field in ("op_flops", "op_bytes"):
+            top = list(r[field].items())[:4]
+            print(f"  {shape} {field} (per device, top 4): "
+                  + ", ".join(f"{k} {v:.4e}" for k, v in top), flush=True)
+        if r["param_bytes"] != want_bytes:
+            fail(f"(p) {shape}: {r['param_bytes']} parameter bytes a device, the rules' "
+                 f"shape arithmetic gives {want_bytes}")
+    if records["decode_32k"]["rules"] != {"cache_seq": "model"}:
+        fail(f"(p) decode_32k: rules {records['decode_32k']['rules']}, not the cache_seq override")
+
+    # (q) the estimate against (o)'s measurement on the mesh
+    r = records["granite"]
+    est, flops = r["device_bytes_estimate"], r["flops"]
+    mf = model_flops(cfg, ShapeConfig("train_1k", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    share = mf / (m_ms / 1e3) / H100_SXM.peak_flops
+    gap = est / m_peak - 1.0
+    print(f"phase 11 (q) on {card}: the dry-run's estimate of (o)'s step on a (1, 1) mesh "
+          f"(trace {r['trace_s']} s): peak {est / 1e9:.3f} GB against "
+          f"max_memory_allocated {m_peak / 1e9:.3f} GB ({gap:+.1%}, tol "
+          f"±{ESTIMATE_TOL:.0%}); traced FLOPs {flops:.6e} against model_flops {mf:.6e} "
+          f"(useful share {mf / flops:.4f}); traced bytes {r['bytes']:.6e}; the measured "
+          f"step {m_ms:.3f} ms is {share:.2%} of the bf16 peak {H100_SXM.peak_flops:.3e} "
+          f"FLOP/s (data sheet); roofline bound {r['roofline']['bottleneck']}", flush=True)
+    if r["status"] != "OK" or abs(gap) > ESTIMATE_TOL:
+        fail(f"(q) the estimated peak {est} is not within {ESTIMATE_TOL:.0%} of {m_peak}")
+    return launches
 
 
 def section5_phase(np, torch, K, telemetry, space, objective, paper, drive, run_job,
@@ -1824,8 +2143,10 @@ def main() -> None:
     try:
         from repro_torch import kernels as K
         from repro_torch.kernels import _build
+        from repro_torch.launch.roofline import H100_SXM
     except ImportError as exc:
         fail(f"cannot import the port (run from a checkout's root): {exc}")
+    PEAKS["SXM"].update(hbm=H100_SXM.hbm_bw, bf16=H100_SXM.peak_flops)
 
     # ------------------------------------------------------------ 1. setup
     t_phase = time.perf_counter()
@@ -2807,8 +3128,16 @@ def main() -> None:
     # 10. AMT tunes real training: granite-moe-1b-a400m served, trained,
     # restarted, and tuned by a BO job of training trials
     t_phase = time.perf_counter()
-    train_launches = train_phase(np, torch, K, telemetry, card, checked_buckets, dev)
+    train_launches, train_numbers = train_phase(np, torch, K, telemetry, card,
+                                                checked_buckets, dev)
     phase_done("10 training and the tuning job", t_phase)
+
+    # 11. sharding on the card: granite-moe-1b-a400m served and trained
+    # through a (1, 1) mesh, the production-mesh dry-run, and the dry-run's
+    # estimate held against the card
+    t_phase = time.perf_counter()
+    mesh_launches = mesh_phase(torch, K, card, dev, train_numbers)
+    phase_done("11 sharding, mesh and dry-run", t_phase)
 
     path_launches = {"main": main_launches, "multi": multi_launches, "kb": kb_launches,
                      "serve": serve_launches, "decode_check": decode_launches,
@@ -2830,6 +3159,7 @@ def main() -> None:
                                  for path, counts in large_launches.items()},
             "train_launches": {path: counts[kname]
                                for path, counts in train_launches.items()},
+            "mesh_launches": mesh_launches[kname],
         })
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,31 @@
-"""The cross-process selection-service harness: engine replicas that serve
-a ``SelectionService`` over sockets with leases (``EngineServer``), and the
-leasing client that a ``Tuner`` drives like the in-process service
-(``RemoteService``), with snapshot-based failover between replicas.
+"""Distributed runtime: the model-sharding helpers (logical-axis rules on
+DTensor, ``sharding.py``) and the cross-process selection-service harness:
+engine replicas that serve a ``SelectionService`` over sockets with leases
+(``EngineServer``), and the leasing client that a ``Tuner`` drives like the
+in-process service (``RemoteService``), with snapshot-based failover between
+replicas.
 
-The JAX package's ``repro.distributed`` also holds the model-sharding
-helpers (``sharding.py``); their port is a later item (ROADMAP A13), so this
-package exports the harness only. The names load lazily, so
-``python -m repro_torch.distributed.engine_server`` runs its module once.
+The sharding helpers are exported eagerly, as the JAX package exports
+them; the harness loads lazily, so ``python -m
+repro_torch.distributed.engine_server`` runs its module once.
 """
 
+from repro_torch.distributed.sharding import (
+    DEFAULT_RULES,
+    PartitionSpec,
+    ShardingRules,
+    logical_to_spec,
+    spec_to_placements,
+    tree_specs_to_shardings,
+)
+
 __all__ = [
+    "ShardingRules",
+    "DEFAULT_RULES",
+    "PartitionSpec",
+    "logical_to_spec",
+    "spec_to_placements",
+    "tree_specs_to_shardings",
     "EngineServer",
     "MirroredStore",
     "RemoteJobHandle",

@@ -17,6 +17,16 @@ Implementations of the prefill forward:
 
 Decode is the plain composition in both (the JAX model uses no kernel
 there either).
+
+On a mesh q, k, v and the output are constrained where the JAX package
+constrains them. The plain composition runs on the DTensors, kept right by
+DTensor's own redistributions. The kernel takes plain tensors, so it runs
+on each rank's shards with declared placements — sharded over batch and
+heads, replicated over the sequence (a sequence-sharded interior is
+gathered first) — and, where the query heads are sharded and the KV heads
+are not (kv_heads does not divide the model axis), on this rank's slice of
+the KV heads: the GQA index is global, and the local call must see the KV
+heads its query heads read.
 """
 
 from __future__ import annotations
@@ -25,8 +35,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import PartitionSpec
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-from repro_torch.models.common import ParamModule, apply_rope, rms_norm, rope_freqs
+from repro_torch.models.common import NO_MESH, ParamModule, ShardCtx, apply_rope, rms_norm, rope_freqs
 
 __all__ = [
     "attention_params", "attention_fwd", "attention_decode", "init_kv_cache", "slot_valid",
@@ -38,30 +49,47 @@ _NEG_INF = -2.0e38
 def attention_params(cfg) -> ParamModule:
     d, hq, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = ParamModule()
-    p.declare("wq", (d, hq, dh), scale=d**-0.5)
-    p.declare("wk", (d, hkv, dh), scale=d**-0.5)
-    p.declare("wv", (d, hkv, dh), scale=d**-0.5)
-    p.declare("wo", (hq, dh, d), scale=(hq * dh) ** -0.5)
+    p.declare("wq", (d, hq, dh), scale=d**-0.5, logical_axes=("fsdp", "heads", "head_dim"))
+    p.declare("wk", (d, hkv, dh), scale=d**-0.5, logical_axes=("fsdp", "kv_heads", "head_dim"))
+    p.declare("wv", (d, hkv, dh), scale=d**-0.5, logical_axes=("fsdp", "kv_heads", "head_dim"))
+    p.declare("wo", (hq, dh, d), scale=(hq * dh) ** -0.5,
+              logical_axes=("heads", "head_dim", "fsdp"))
     if cfg.qkv_bias:
-        p.declare("bq", (hq, dh), init="zeros")
-        p.declare("bk", (hkv, dh), init="zeros")
-        p.declare("bv", (hkv, dh), init="zeros")
+        p.declare("bq", (hq, dh), init="zeros", logical_axes=("heads", "head_dim"))
+        p.declare("bk", (hkv, dh), init="zeros", logical_axes=("kv_heads", "head_dim"))
+        p.declare("bv", (hkv, dh), init="zeros", logical_axes=("kv_heads", "head_dim"))
     if cfg.qk_norm:
-        p.declare("q_norm", (dh,), init="zeros")
-        p.declare("k_norm", (dh,), init="zeros")
+        p.declare("q_norm", (dh,), init="zeros", logical_axes=(None,))
+        p.declare("k_norm", (dh,), init="zeros", logical_axes=(None,))
     return p
 
 
-def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one matrix product."""
+def _heads(x: torch.Tensor, w: torch.Tensor, ctx: ShardCtx = NO_MESH,
+           axis: str = "heads") -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one matrix product. On a mesh it runs on
+    each rank's shards — the weight's FSDP dim gathered, its heads (``axis``)
+    sharded as they divide — so that neither the product nor its gradient
+    is split along the flattened h·k columns where h does not divide."""
     d, h, k = w.shape
-    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+    def local(x_, w_):
+        h_ = w_.shape[1]
+        return (x_ @ w_.to(x_.dtype).reshape(d, h_ * k)).reshape(*x_.shape[:-1], h_, k)
+
+    out_shape = tuple(x.shape[:-1]) + (h, k)
+    if not ctx.active:
+        return local(x, w)
+    out = ctx.spec(("batch", "attn_seq", axis, None), out_shape)
+    out = PartitionSpec(*(tuple(out) + (None,) * (4 - len(out))))
+    return ctx.local_call(local, [(x, PartitionSpec(*out[:2])), (w, PartitionSpec(None, out[2]))],
+                          [(out, out_shape)])
 
 
-def _project_qkv(x, p, cfg, positions, theta):
+def _project_qkv(x, p, cfg, positions, theta, ctx: ShardCtx = NO_MESH):
     """x: (B,S,D) -> q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh), roped + normed."""
     cdt = x.dtype
-    q, k, v = _heads(x, p.wq), _heads(x, p.wk), _heads(x, p.wv)
+    q = _heads(x, p.wq, ctx)
+    k, v = _heads(x, p.wk, ctx, "kv_heads"), _heads(x, p.wv, ctx, "kv_heads")
     if cfg.qkv_bias:
         q = q + p.bq.to(cdt)
         k = k + p.bk.to(cdt)
@@ -75,25 +103,92 @@ def _project_qkv(x, p, cfg, positions, theta):
     return q, k, v
 
 
-def _gqa_scores_to_out(q_chunk, k, v, mask, cfg):
-    """q_chunk: (B,C,Hq,Dh); k/v: (B,S,Hkv,Dh); mask: (B,C,S) bool."""
-    hkv, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
-    b, c, _, dh = q_chunk.shape
-    qg = q_chunk.reshape(b, c, hkv, g, dh)
+def _gqa_scores(q_chunk, k, mask, cfg):
+    """Masked, scaled (and soft-capped) f32 scores (B, Hkv, G, C, S) of
+    q_chunk (B,C,Hq,Dh) against k (B,S,Hkv,Dh); mask (B,C,S) bool. The head
+    counts are the tensors' own (a rank's shards on a mesh)."""
+    hkv = k.shape[2]
+    b, c, hq, dh = q_chunk.shape
+    qg = q_chunk.reshape(b, c, hkv, hq // hkv, dh)
     scores = torch.einsum("bchgd,bshd->bhgcs", qg, k).float()
     scores = scores * (dh**-0.5)
     if cfg.attn_softcap > 0:
         scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
-    scores = torch.where(mask[:, None, None, :, :], scores, _NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(q_chunk.dtype)
+    return torch.where(mask[:, None, None, :, :], scores, _NEG_INF)
+
+
+def _gqa_scores_to_out(q_chunk, k, v, mask, cfg):
+    """q_chunk: (B,C,Hq,Dh); k/v: (B,S,Hkv,Dh); mask: (B,C,S) bool."""
+    b, c, hq, dh = q_chunk.shape
+    probs = torch.softmax(_gqa_scores(q_chunk, k, mask, cfg), dim=-1).to(q_chunk.dtype)
     out = torch.einsum("bhgcs,bshd->bchgd", probs, v)
-    return out.reshape(b, c, cfg.num_heads, dh)
+    return out.reshape(b, c, hq, dh)
 
 
-def _out_proj(out: torch.Tensor, wo: torch.Tensor, cdt) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd") as one matrix product."""
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, cdt,
+              ctx: ShardCtx = NO_MESH) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd") as one matrix product; on a mesh on each
+    rank's heads, a partial sum over the heads' mesh axes."""
     h, k, d = wo.shape
-    return out.reshape(*out.shape[:-2], h * k) @ wo.to(cdt).reshape(h * k, d)
+
+    def local(o_, w_):
+        h_ = w_.shape[0]
+        return o_.reshape(*o_.shape[:-2], h_ * k) @ w_.to(cdt).reshape(h_ * k, d)
+
+    if not ctx.active:
+        return local(out, wo)
+    o = ctx.spec(("batch", "attn_seq", "heads", None), out.shape)
+    o = PartitionSpec(*(tuple(o) + (None,) * (3 - len(o))))
+    return ctx.local_call(local, [(out, o), (wo, PartitionSpec(o[2]))],
+                          [(PartitionSpec(*o[:2]), tuple(out.shape[:-2]) + (d,),
+                            ctx.mesh_axes(o[2]))])
+
+
+def _local_kv(q, k, v, hq: int, hkv: int, q_entry, ctx: ShardCtx):
+    """The KV heads this rank's query heads read: all of them when both are
+    sharded alike or neither is; this rank's slice when only the query heads
+    are sharded. Refuses a split the group size does not align with."""
+    hq_l, hkv_l = q.shape[2], k.shape[2]
+    if hq_l == hq or hkv_l < hkv:
+        return k, v
+    g = hq // hkv
+    h0 = ctx.shard_index(q_entry) * hq_l
+    if hq_l % g == 0:
+        lo, n = h0 // g, hq_l // g
+    elif g % hq_l == 0:
+        lo, n = h0 // g, 1
+    else:
+        raise ValueError(f"attention: {hq_l} local query heads do not align with groups of {g}")
+    return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+
+
+def _attend(q, k, v, positions, cfg, window: int, impl: str, q_chunk: int,
+            ctx: ShardCtx) -> torch.Tensor:
+    """Causal (windowed) attention of (B,S,H,Dh) q/k/v: the flash-attention
+    kernel or the plain composition, on local shards under a mesh (see the
+    module docstring)."""
+    if impl not in ("kernel", "torch"):
+        raise ValueError(f"unknown attention impl {impl!r} (kernel or torch)")
+    q_axes, kv_axes = ("batch", None, "heads", None), ("batch", None, "kv_heads", None)
+    hq, hkv = q.shape[2], k.shape[2]
+    spec = ctx.spec(q_axes, q.shape) if ctx.active else ()
+    q_entry = spec[2] if len(spec) > 2 else None
+
+    def local(ql, kl, vl, pos):
+        kl, vl = _local_kv(ql, kl, vl, hq, hkv, q_entry, ctx)
+        if impl == "kernel":
+            return flash_attention_kernel(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                                          window, cfg.attn_softcap)
+        chunks = []
+        for q_i, pos_i in zip(ql.split(q_chunk, dim=1), pos.split(q_chunk, dim=1)):
+            mask = pos_i[:, :, None] >= pos[:, None, :]  # causal
+            if window > 0:
+                mask &= pos_i[:, :, None] - pos[:, None, :] < window
+            chunks.append(_gqa_scores_to_out(q_i, kl, vl, mask, cfg))
+        return torch.cat(chunks, dim=1)
+
+    return ctx.local_call(local, [(q, q_axes), (k, kv_axes), (v, kv_axes),
+                                  (positions, ("batch", None))], [(q_axes, q.shape)])
 
 
 def attention_fwd(
@@ -105,24 +200,19 @@ def attention_fwd(
     theta: Optional[float] = None,
     impl: str = "kernel",
     q_chunk: int = 1024,
+    ctx: ShardCtx = NO_MESH,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Prefill attention. Returns (out (B,S,D), (k, v) for caching). The
     kernel takes positions 0..S−1, which is what a prefill passes."""
     theta = theta or cfg.rope_theta
-    q, k, v = _project_qkv(x, p, cfg, positions, theta)
-    if impl == "kernel":
-        out = flash_attention_kernel(q, k, v, window, cfg.attn_softcap)
-    elif impl == "torch":
-        chunks = []
-        for q_i, pos_i in zip(q.split(q_chunk, dim=1), positions.split(q_chunk, dim=1)):
-            mask = pos_i[:, :, None] >= positions[:, None, :]  # causal
-            if window > 0:
-                mask &= pos_i[:, :, None] - positions[:, None, :] < window
-            chunks.append(_gqa_scores_to_out(q_i, k, v, mask, cfg))
-        out = torch.cat(chunks, dim=1)
-    else:
-        raise ValueError(f"unknown attention impl {impl!r} (kernel or torch)")
-    return _out_proj(out, p.wo, x.dtype), (k, v)
+    q, k, v = _project_qkv(x, p, cfg, positions, theta, ctx)
+    q = ctx.constrain(q, ("batch", "attn_seq", "heads", None))
+    k = ctx.constrain(k, ("batch", "attn_seq", "kv_heads", None))
+    v = ctx.constrain(v, ("batch", "attn_seq", "kv_heads", None))
+    out = _attend(q, k, v, positions, cfg, window, impl, q_chunk, ctx)
+    out = ctx.constrain(out, ("batch", "attn_seq", "heads", None))
+    y = ctx.constrain(_out_proj(out, p.wo, x.dtype, ctx), ("batch", "seq", "embed"))
+    return y, (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -154,22 +244,102 @@ def attention_decode(
     t: int,  # current absolute position
     window: int = 0,  # 0 = full cache; >0 = ring buffer of size C
     theta: Optional[float] = None,
+    ctx: ShardCtx = NO_MESH,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One decode step. The cache stores *post-RoPE* keys and is updated in
     place (the JAX package returns a new one). For window>0 the cache is a
-    ring buffer of size C (slot = position mod C)."""
+    ring buffer of size C (slot = position mod C). On a mesh the slot is
+    written on each rank's shard of the cache: the rank whose sequence
+    shard holds it, where the cache is sharded over its sequence."""
     theta = theta or cfg.rope_theta
     k_cache, v_cache = cache
     b, c = k_cache.shape[:2]
     positions = torch.full((b, 1), t, dtype=torch.long, device=x.device)
-    q, k_new, v_new = _project_qkv(x, p, cfg, positions, theta)
+    q, k_new, v_new = _project_qkv(x, p, cfg, positions, theta, ctx)
 
     slot = t % max(c, 1) if window > 0 else t
     slot = min(max(slot, 0), c - 1)  # dynamic_update_slice clamps its start
-    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+    _write_slot(k_cache, k_new, slot, ctx)
+    _write_slot(v_cache, v_new, slot, ctx)
 
-    mask = slot_valid(c, t, window, x.device)[None, None, :].expand(b, 1, c)
+    valid = slot_valid(c, t, window, x.device)
+    if not ctx.active:
+        mask = valid[None, None, :].expand(b, 1, c)
+        out = _gqa_scores_to_out(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, cfg)
+    else:
+        out = _decode_attend_sharded(q, k_cache, v_cache, valid, cfg, ctx)
+    return ctx.constrain(_out_proj(out, p.wo, x.dtype, ctx), ("batch", None, "embed")), (k_cache, v_cache)
 
-    out = _gqa_scores_to_out(q, k_cache.to(q.dtype), v_cache.to(q.dtype), mask, cfg)
-    return _out_proj(out, p.wo, x.dtype), (k_cache, v_cache)
+
+def _decode_attend_sharded(q, k_cache, v_cache, valid, cfg, ctx: ShardCtx):
+    """Decode attention of q (B,1,Hq,Dh) over caches placed by
+    ("batch", "cache_seq", "kv_heads", None), on each rank's shards. With
+    the sequence whole on every rank it is the plain composition on the
+    shards. With the sequence sharded, each rank takes every query head
+    over its slots and returns its softmax statistics (max, sum and the
+    unnormalised output, f32), which are combined across the shards."""
+    cache_axes = ("batch", "cache_seq", "kv_heads", None)
+    c_spec = ctx.spec(cache_axes, k_cache.shape)
+    seq_entry = c_spec[1] if len(c_spec) > 1 else None
+    hq, hkv = q.shape[2], k_cache.shape[2]
+    b, _, _, dh = q.shape
+    q_axes = ("batch", None, "heads", None)
+    if seq_entry is None:
+        q_spec = ctx.spec(q_axes, q.shape)
+        q_entry = q_spec[2] if len(q_spec) > 2 else None
+
+        def local(ql, kl, vl):
+            kl, vl = _local_kv(ql, kl, vl, hq, hkv, q_entry, ctx)
+            mask = valid[None, None, :].expand(ql.shape[0], 1, valid.shape[0])
+            return _gqa_scores_to_out(ql, kl.to(ql.dtype), vl.to(ql.dtype), mask, cfg)
+
+        return ctx.local_call(local, [(q, q_axes), (k_cache, cache_axes), (v_cache, cache_axes)],
+                              [(q_axes, q.shape)])
+    q_axes = ("batch", None, None, None)  # every head meets every slot shard
+    n = len(valid) // k_cache.to_local().shape[1]
+
+    def local(ql, kl, vl):
+        if kl.shape[2] != hkv:
+            raise ValueError("decode attention: a cache sharded over both its "
+                             "sequence and its KV heads is not supported")
+        rows = kl.shape[1]
+        s0 = ctx.shard_index(seq_entry) * rows
+        mask = valid[s0:s0 + rows][None, None, :].expand(ql.shape[0], 1, rows)
+        scores = _gqa_scores(ql, kl.to(ql.dtype), mask, cfg)  # (B, Hkv, G, 1, rows)
+        m = scores.amax(-1, keepdim=True)
+        e = torch.exp(scores - m)
+        o = torch.einsum("bhgcs,bshd->bchgd", e, vl.float())  # (B, 1, Hkv, G, Dh)
+        bl = ql.shape[0]
+        return (m.reshape(1, bl, hq), e.sum(-1).reshape(1, bl, hq),
+                o.reshape(1, bl, hq, dh))
+
+    stat = ("cache_seq", "batch", None)
+    m, l, o = ctx.local_call(
+        local, [(q, q_axes), (k_cache, cache_axes), (v_cache, cache_axes)],
+        [(stat, (n, b, hq)), (stat, (n, b, hq)), (stat + (None,), (n, b, hq, dh))])
+    top = m.amax(0, keepdim=True)
+    w = torch.exp(m - top)
+    out = (o * w[..., None]).sum(0) / (l * w).sum(0)[..., None]  # (B, Hq, Dh)
+    return out[:, None].to(q.dtype)
+
+
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int, ctx: ShardCtx) -> None:
+    """cache[:, slot] = new[:, 0], in place; on a mesh on each rank's shard
+    of a cache constrained to ("batch", "cache_seq", "kv_heads", None)."""
+    if not ctx.active:
+        cache[:, slot] = new[:, 0].to(cache.dtype)
+        return
+    axes = ("batch", "cache_seq", "kv_heads", None)
+    spec = ctx.spec(axes, cache.shape)
+    seq_entry = spec[1] if len(spec) > 1 else None
+    from torch.distributed.tensor import Replicate, Shard
+
+    # the cache's own placements, its sequence dim whole
+    placements = [Replicate() if pl == Shard(1) else pl for pl in cache.placements]
+    new = ctx.constrain(new, ("batch", None, "kv_heads", None))
+    new = new.to(cache.dtype).redistribute(ctx.mesh, placements)
+    local_cache, local_new = cache.to_local(), new.to_local()
+    rows = local_cache.shape[1]
+    s0 = ctx.shard_index(seq_entry) * rows
+    if s0 <= slot < s0 + rows:
+        local_cache[:, slot - s0] = local_new[:, 0]

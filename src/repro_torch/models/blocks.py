@@ -18,7 +18,7 @@ from repro_torch.models.attention import (
     attention_params,
     init_kv_cache,
 )
-from repro_torch.models.common import ParamModule, rms_norm
+from repro_torch.models.common import NO_MESH, ParamModule, ShardCtx, rms_norm
 from repro_torch.models.mamba import (
     init_mamba_cache,
     mamba_decode,
@@ -43,7 +43,7 @@ def _has_mlp(cfg) -> bool:
 def block_params(cfg, kind: str) -> ParamModule:
     d = cfg.d_model
     p = ParamModule()
-    p.declare("ln1", (d,), init="zeros")
+    p.declare("ln1", (d,), init="zeros", logical_axes=("embed",))
     if kind in ("attn", "swa"):
         p.attn = attention_params(cfg)
     elif kind == "mamba":
@@ -53,12 +53,12 @@ def block_params(cfg, kind: str) -> ParamModule:
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     if cfg.sandwich_norm:
-        p.declare("ln1_post", (d,), init="zeros")
+        p.declare("ln1_post", (d,), init="zeros", logical_axes=("embed",))
     if _has_mlp(cfg):
-        p.declare("ln2", (d,), init="zeros")
+        p.declare("ln2", (d,), init="zeros", logical_axes=("embed",))
         p.mlp = moe_params(cfg) if cfg.moe is not None else mlp_params(cfg)
         if cfg.sandwich_norm:
-            p.declare("ln2_post", (d,), init="zeros")
+            p.declare("ln2_post", (d,), init="zeros", logical_axes=("embed",))
     return p
 
 
@@ -68,15 +68,19 @@ def _mixer_theta(cfg, kind: str) -> float:
     return cfg.rope_theta
 
 
-def _mlp_residual(x, p, cfg):
-    """The FFN sub-block; returns (x, the MoE aux loss or None)."""
+def _mlp_residual(x, p, cfg, ctx: ShardCtx, constrain: bool):
+    """The FFN sub-block; returns (x, the MoE aux loss or None). The
+    training/prefill forward constrains the normed input (``constrain``),
+    the decode step does not, as in the JAX package."""
     aux = None
     if _has_mlp(cfg):
         h = rms_norm(x, p.ln2, cfg.norm_eps)
+        if constrain:
+            h = ctx.constrain(h, ("batch", "attn_seq", "embed"))
         if cfg.moe is not None:
-            h, aux = moe_fwd(h, p.mlp, cfg)
+            h, aux = moe_fwd(h, p.mlp, cfg, ctx)
         else:
-            h = mlp_fwd(h, p.mlp, cfg)
+            h = mlp_fwd(h, p.mlp, cfg, ctx)
         if cfg.sandwich_norm:
             h = rms_norm(h, p.ln2_post, cfg.norm_eps)
         x = x + h
@@ -90,6 +94,7 @@ def block_fwd(
     kind: str,
     positions: torch.Tensor,
     impl: str = "kernel",
+    ctx: ShardCtx = NO_MESH,
 ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
     """Returns (x, mixer state, aux loss): the state is (k, v) for attention
     blocks, the decode cache {"conv", "ssm"} for mamba and {"conv", "h"} for
@@ -97,20 +102,22 @@ def block_fwd(
     training forward drops it; the aux loss is the MoE block's
     load-balancing loss (float32), None for a dense FFN, where the JAX
     package returns 0."""
-    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    # the sequence-parallel boundary sits on the normed tensor, as in the
+    # JAX package
+    h = ctx.constrain(rms_norm(x, p.ln1, cfg.norm_eps), ("batch", "attn_seq", "embed"))
     if kind in ("attn", "swa"):
         window = cfg.window if kind == "swa" else 0
         h, state = attention_fwd(
             h, p.attn, cfg, positions, window=window,
-            theta=_mixer_theta(cfg, kind), impl=impl,
+            theta=_mixer_theta(cfg, kind), impl=impl, ctx=ctx,
         )
     elif kind == "mamba":
-        h, state = mamba_fwd(h, p.mixer, cfg, impl=impl)
+        h, state = mamba_fwd(h, p.mixer, cfg, impl=impl, ctx=ctx)
     else:  # rglru
-        h, state = rglru_fwd(h, p.mixer, cfg, impl=impl)
+        h, state = rglru_fwd(h, p.mixer, cfg, impl=impl, ctx=ctx)
     if cfg.sandwich_norm:
         h = rms_norm(h, p.ln1_post, cfg.norm_eps)
-    x, aux = _mlp_residual(x + h, p, cfg)
+    x, aux = _mlp_residual(x + h, p, cfg, ctx, constrain=True)
     return x, state, aux
 
 
@@ -130,18 +137,19 @@ def init_block_cache(cfg, kind: str, batch: int, cache_len: int, dtype, device):
 
 
 def block_decode(
-    x: torch.Tensor, p: ParamModule, cfg, kind: str, cache, t: int
+    x: torch.Tensor, p: ParamModule, cfg, kind: str, cache, t: int,
+    ctx: ShardCtx = NO_MESH,
 ) -> Tuple[torch.Tensor, Any]:
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if kind in ("attn", "swa"):
         window = cfg.window if kind == "swa" else 0
         h, cache = attention_decode(
-            h, p.attn, cfg, cache, t, window=window, theta=_mixer_theta(cfg, kind),
+            h, p.attn, cfg, cache, t, window=window, theta=_mixer_theta(cfg, kind), ctx=ctx,
         )
     elif kind == "mamba":
-        h, cache = mamba_decode(h, p.mixer, cfg, cache)
+        h, cache = mamba_decode(h, p.mixer, cfg, cache, ctx=ctx)
     else:  # rglru
-        h, cache = rglru_decode(h, p.mixer, cfg, cache)
+        h, cache = rglru_decode(h, p.mixer, cfg, cache, ctx=ctx)
     if cfg.sandwich_norm:
         h = rms_norm(h, p.ln1_post, cfg.norm_eps)
-    return _mlp_residual(x + h, p, cfg)[0], cache
+    return _mlp_residual(x + h, p, cfg, ctx, constrain=False)[0], cache

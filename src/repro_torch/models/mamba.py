@@ -22,6 +22,10 @@ in f32, the result cast to the compute dtype and gated by SiLU(z) there.
 
 Decode: a single-token state update — the decode cache is (conv window,
 ssm state), both O(1) in sequence length.
+
+On a mesh the scan (kernel or plain) runs on each rank's shards, sharded
+over batch and the inner channels and whole over time: every channel's
+recurrence is its own.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.kernel import mamba_scan_kernel
 from repro_torch.kernels.mamba_scan.plain import mamba_scan_plain
-from repro_torch.models.common import ParamModule
+from repro_torch.models.common import NO_MESH, ParamModule, ShardCtx
 
 __all__ = ["mamba_params", "mamba_fwd", "mamba_decode", "init_mamba_cache", "_causal_conv"]
 
@@ -44,15 +48,16 @@ def mamba_params(cfg) -> ParamModule:
     di, ds, dc, dtr = m.d_inner, m.d_state, m.d_conv, cfg.dt_rank
     p = ParamModule()
     # S4D-real initialization for A: A[n] = -(n+1), stored as log(-A).
-    p.declare("in_proj", (d, 2 * di), scale=d**-0.5)
-    p.declare("conv_w", (dc, di), scale=dc**-0.5)
-    p.declare("conv_b", (di,), init="zeros")
-    p.declare("x_proj", (di, dtr + 2 * ds), scale=di**-0.5)
-    p.declare("dt_proj_w", (dtr, di), scale=dtr**-0.5)
-    p.declare("dt_proj_b", (di,), init="constant", scale=-4.6)  # softplus^-1(0.01)
-    p.declare("a_log", (di, ds), init="constant", scale=0.0)
-    p.declare("d_skip", (di,), init="ones")
-    p.declare("out_proj", (di, d), scale=di**-0.5)
+    p.declare("in_proj", (d, 2 * di), scale=d**-0.5, logical_axes=("fsdp", "inner"))
+    p.declare("conv_w", (dc, di), scale=dc**-0.5, logical_axes=("conv", "inner"))
+    p.declare("conv_b", (di,), init="zeros", logical_axes=("inner",))
+    p.declare("x_proj", (di, dtr + 2 * ds), scale=di**-0.5, logical_axes=("inner", None))
+    p.declare("dt_proj_w", (dtr, di), scale=dtr**-0.5, logical_axes=(None, "inner"))
+    p.declare("dt_proj_b", (di,), init="constant", scale=-4.6,
+              logical_axes=("inner",))  # softplus^-1(0.01)
+    p.declare("a_log", (di, ds), init="constant", scale=0.0, logical_axes=("inner", "state"))
+    p.declare("d_skip", (di,), init="ones", logical_axes=("inner",))
+    p.declare("out_proj", (di, d), scale=di**-0.5, logical_axes=("inner", "fsdp"))
     return p
 
 
@@ -92,7 +97,7 @@ def _gated_out(y, u, z, p):
 
 
 def mamba_fwd(
-    x: torch.Tensor, p: ParamModule, cfg, impl: str = "kernel"
+    x: torch.Tensor, p: ParamModule, cfg, impl: str = "kernel", ctx: ShardCtx = NO_MESH
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill forward. Returns (out (B,S,D), decode cache {"conv": the last
     dc−1 pre-conv inputs, "ssm": the state after the last step (B, di, ds)
@@ -100,19 +105,25 @@ def mamba_fwd(
     di = cfg.mamba.d_inner
     uz = x @ p.in_proj.to(x.dtype)
     u_in, z = uz[..., :di], uz[..., di:]
+    u_in = ctx.constrain(u_in, ("batch", "seq", "inner"))
     u, _ = _causal_conv(u_in, p.conv_w, p.conv_b)
     u = F.silu(u)
     dt, b_t, c_t, a = _ssm_inputs(u, p, cfg)
     if impl == "kernel":
-        y, h_last = mamba_scan_kernel(u.float(), dt, a, b_t, c_t)
+        scan = mamba_scan_kernel
     elif impl == "torch":
-        y, h_last = mamba_scan_plain(u.float(), dt, a, b_t, c_t)
+        scan = mamba_scan_plain
     else:
         raise ValueError(f"unknown mamba impl {impl!r} (kernel or torch)")
+    chan, bsd = ("batch", None, "inner"), ("batch", None, None)
+    y, h_last = ctx.local_call(
+        scan, [(u.float(), chan), (dt, chan), (a, ("inner", None)), (b_t, bsd), (c_t, bsd)],
+        [(chan, dt.shape), (("batch", "inner", None), (dt.shape[0], di, a.shape[1]))])
     dc = cfg.mamba.d_conv
     # a copy: a view would keep the whole (B, S, 2·di) projection alive
     conv = u_in[:, -(dc - 1):, :].clone()
-    return _gated_out(y, u, z, p), {"conv": conv, "ssm": h_last}
+    out = ctx.constrain(_gated_out(y, u, z, p), ("batch", "seq", "embed"))
+    return out, {"conv": conv, "ssm": h_last}
 
 
 # ---------------------------------------------------------------------------
@@ -127,7 +138,8 @@ def init_mamba_cache(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
 
 
 def mamba_decode(
-    x: torch.Tensor, p: ParamModule, cfg, cache: Dict[str, torch.Tensor]
+    x: torch.Tensor, p: ParamModule, cfg, cache: Dict[str, torch.Tensor],
+    ctx: ShardCtx = NO_MESH,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B,1,D) → (out (B,1,D), new cache)."""
     di = cfg.mamba.d_inner
@@ -140,4 +152,5 @@ def mamba_decode(
     a_bar = torch.exp(dt[:, 0, :, None] * a[None])
     h = a_bar * cache["ssm"] + (dt[:, 0] * u[:, 0].float())[:, :, None] * b_t[:, 0][:, None, :]
     y = torch.einsum("bis,bs->bi", h, c_t[:, 0])[:, None, :]  # (B,1,di)
-    return _gated_out(y, u, z, p), {"conv": conv_state, "ssm": h}
+    out = ctx.constrain(_gated_out(y, u, z, p), ("batch", None, "embed"))
+    return out, {"conv": conv_state, "ssm": h}

@@ -16,6 +16,9 @@ is the scan's own last row: the JAX package recomputes it with a second
 scan over the same ``a`` and ``gated`` (``model.py::_rglru_prefill``), which
 a loop over S steps per layer would make dearer than the prefill itself.
 Decode is a single gated state update.
+
+On a mesh the scan (kernel or plain) runs on each rank's shards, sharded
+over batch and channels and whole over time.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_kernel
 from repro_torch.kernels.rglru_scan.plain import rglru_scan_plain
-from repro_torch.models.common import ParamModule
+from repro_torch.models.common import NO_MESH, ParamModule, ShardCtx
 from repro_torch.models.mamba import _causal_conv
 
 __all__ = ["rglru_params", "rglru_fwd", "rglru_decode", "init_rglru_cache"]
@@ -38,17 +41,17 @@ def rglru_params(cfg) -> ParamModule:
     r = cfg.rglru
     di, dc = r.d_inner, r.conv_width
     p = ParamModule()
-    p.declare("w_x", (d, di), scale=d**-0.5)
-    p.declare("w_y", (d, di), scale=d**-0.5)
-    p.declare("conv_w", (dc, di), scale=dc**-0.5)
-    p.declare("conv_b", (di,), init="zeros")
-    p.declare("w_a", (di, di), scale=di**-0.5)
-    p.declare("b_a", (di,), init="zeros")
-    p.declare("w_i", (di, di), scale=di**-0.5)
-    p.declare("b_i", (di,), init="zeros")
+    p.declare("w_x", (d, di), scale=d**-0.5, logical_axes=("fsdp", "inner"))
+    p.declare("w_y", (d, di), scale=d**-0.5, logical_axes=("fsdp", "inner"))
+    p.declare("conv_w", (dc, di), scale=dc**-0.5, logical_axes=("conv", "inner"))
+    p.declare("conv_b", (di,), init="zeros", logical_axes=("inner",))
+    p.declare("w_a", (di, di), scale=di**-0.5, logical_axes=("inner", "fsdp"))
+    p.declare("b_a", (di,), init="zeros", logical_axes=("inner",))
+    p.declare("w_i", (di, di), scale=di**-0.5, logical_axes=("fsdp", "inner"))
+    p.declare("b_i", (di,), init="zeros", logical_axes=("inner",))
     # Λ init so a ≈ 0.9..0.999 at r=0.5 (Griffin's stable range)
-    p.declare("lam", (di,), init="constant", scale=0.65)
-    p.declare("w_out", (di, d), scale=di**-0.5)
+    p.declare("lam", (di,), init="constant", scale=0.65, logical_axes=("inner",))
+    p.declare("w_out", (di, d), scale=di**-0.5, logical_axes=("inner", "embed"))
     return p
 
 
@@ -64,24 +67,27 @@ def _gates(xi: torch.Tensor, p: ParamModule, cfg):
 
 
 def rglru_fwd(
-    x: torch.Tensor, p: ParamModule, cfg, impl: str = "kernel"
+    x: torch.Tensor, p: ParamModule, cfg, impl: str = "kernel", ctx: ShardCtx = NO_MESH
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Prefill forward. Returns (out (B,S,D), decode cache {"conv": the last
     dc−1 pre-conv inputs, "h": the state after the last step (f32)})."""
     cdt = x.dtype
-    xi_in = x @ p.w_x.to(cdt)
+    xi_in = ctx.constrain(x @ p.w_x.to(cdt), ("batch", "seq", "inner"))
     xi, _ = _causal_conv(xi_in, p.conv_w, p.conv_b)
     y_branch = F.gelu(x @ p.w_y.to(cdt), approximate="tanh")  # jax.nn.gelu's default
 
     a, gated = _gates(xi, p, cfg)
     if impl == "kernel":
-        h, h_last = rglru_scan_kernel(a, gated)
+        scan = rglru_scan_kernel
     elif impl == "torch":
-        h, h_last = rglru_scan_plain(a, gated)
+        scan = rglru_scan_plain
     else:
         raise ValueError(f"unknown rglru impl {impl!r} (kernel or torch)")
+    chan = ("batch", None, "inner")
+    h, h_last = ctx.local_call(scan, [(a, chan), (gated, chan)],
+                               [(chan, a.shape), (("batch", "inner"), (a.shape[0], a.shape[2]))])
 
-    out = (h.to(cdt) * y_branch) @ p.w_out.to(cdt)
+    out = ctx.constrain((h.to(cdt) * y_branch) @ p.w_out.to(cdt), ("batch", "seq", "embed"))
     dc = cfg.rglru.conv_width
     # a copy: a view would keep the whole (B, S, di) projection alive
     return out, {"conv": xi_in[:, -(dc - 1):, :].clone(), "h": h_last}
@@ -99,7 +105,8 @@ def init_rglru_cache(cfg, batch: int, dtype, device) -> Dict[str, torch.Tensor]:
 
 
 def rglru_decode(
-    x: torch.Tensor, p: ParamModule, cfg, cache: Dict[str, torch.Tensor]
+    x: torch.Tensor, p: ParamModule, cfg, cache: Dict[str, torch.Tensor],
+    ctx: ShardCtx = NO_MESH,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     cdt = x.dtype
     xi = x @ p.w_x.to(cdt)
@@ -109,5 +116,6 @@ def rglru_decode(
     a, gated = _gates(xi, p, cfg)
     h = a[:, 0] * cache["h"] + gated[:, 0]  # (B, di)
 
-    out = (h[:, None, :].to(cdt) * y_branch) @ p.w_out.to(cdt)
+    out = ctx.constrain((h[:, None, :].to(cdt) * y_branch) @ p.w_out.to(cdt),
+                        ("batch", None, "embed"))
     return out, {"conv": conv_state, "h": h}

@@ -44,4 +44,6 @@ def greedy_generate(model, prompt, num_tokens: int, cache_len: int) -> torch.Ten
         else:
             logits, cache = step(cache, tok, seq_len + i)
         tok = torch.argmax(logits, dim=-1)
-    return torch.stack(out, dim=1)
+    tokens = torch.stack(out, dim=1)
+    # a model on a mesh returns the tokens whole, as a plain tensor
+    return tokens.full_tensor() if hasattr(tokens, "full_tensor") else tokens

@@ -23,7 +23,14 @@ the step is captured as one CUDA graph — forward, backward, accumulation
 and the AdamW update — after ``WARMUP_STEPS`` eager steps, and replayed
 with the batch copied into the captured input buffers: the same kernels on
 the same tensors. A new state or batch shape captures again. On the CPU
-every step runs eagerly.
+every step runs eagerly; ``train_step.eager`` is the step without the
+graph, which the dry-run traces.
+
+On a mesh (``Model(mesh=...)``) parameters, gradients and moments are
+DTensors. The global batch arrives whole on every rank; each microbatch is
+cut from it and then sharded over the batch axes, and the microbatch count
+is clamped (``microbatch_count``) so that each microbatch stays divisible
+by the batch-sharding ways, as the JAX dry-run clamps it.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step", "init_train_state",
-           "train_state_of"]
+           "train_state_of", "microbatch_count"]
 
 #: eager steps before a step is captured as a CUDA graph (cuBLAS handles,
 #: autograd's device threads and the allocator warm up on them)
@@ -80,50 +87,71 @@ def _grads(model, leaves, batch):
     """(loss, metrics, gradients of the loss for ``leaves``); a parameter
     the loss does not reach gets zeros, as ``jax.grad`` gives it."""
     loss, metrics = model.loss_fn(batch)
-    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    with model.mesh_scope():
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def microbatch_count(n_micro: int, global_batch: int, batch_ways: int) -> int:
+    """The microbatch count clamped so that every microbatch divides the
+    global batch and stays divisible by the batch-sharding ways (the JAX
+    dry-run's clamp); ``n_micro`` itself when there is one way."""
+    if batch_ways <= 1:
+        return n_micro
+    n = max(1, min(n_micro, global_batch // batch_ways))
+    while n > 1 and (global_batch % n or (global_batch // n) % batch_ways):
+        n -= 1
+    return n
 
 
 def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int | None = None):
     """``microbatches`` overrides cfg.microbatches. Raises ``ValueError`` for
     a model with ``impl="kernel"`` (here, and at each step). On the card the
-    step is replayed from a CUDA graph after ``WARMUP_STEPS`` eager steps."""
+    step is replayed from a CUDA graph after ``WARMUP_STEPS`` eager steps.
+    The returned function carries the eager step as ``.eager(state, batch,
+    micro_loop=range)``: ``micro_loop`` yields the microbatch indices, which
+    lets a tracer run one microbatch and count it as all of them."""
     _check_trainable(model)
     cfg = model.cfg
-    n_micro = max(1, microbatches if microbatches is not None else cfg.microbatches)
+    n_cfg = max(1, microbatches if microbatches is not None else cfg.microbatches)
     acc_dt = getattr(torch, opt_cfg.grad_accum_dtype)
+    from repro_torch.models.mlp import _batch_ways
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor]):
+    ways = _batch_ways(model.ctx) if model.ctx.active else 1
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], micro_loop=range):
         """One step on tensors already on the model's device."""
         names = list(state.params)
         leaves = [state.params[k] for k in names]
+        size = batch["labels"].shape[0]
+        n_micro = microbatch_count(n_cfg, size, ways)
 
-        if n_micro == 1:
-            loss, metrics, grads = _grads(model, leaves, batch)
-        else:
-            size = batch["labels"].shape[0]
-            if size % n_micro:
-                raise ValueError(f"global batch {size} not divisible by microbatches {n_micro}")
-            size //= n_micro
-            g_acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device) for p in leaves]
-            loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
-            aux_sum = torch.zeros((), dtype=torch.float32, device=model.device)
-            for i in range(n_micro):
-                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-                loss, m, g = _grads(model, leaves, mb)
-                for a, gi in zip(g_acc, g):
-                    a.add_(gi.to(acc_dt))
-                del g
-                loss_sum = loss_sum + loss
-                aux_sum = aux_sum + m["aux"]
-            grads = [a.div_(n_micro) for a in g_acc]
-            loss = loss_sum / n_micro
-            metrics = {"ce": loss - aux_sum / n_micro, "aux": aux_sum / n_micro}
+        with model.mesh_scope():
+            if n_micro == 1:
+                loss, metrics, grads = _grads(model, leaves, batch)
+            else:
+                if size % n_micro:
+                    raise ValueError(f"global batch {size} not divisible by microbatches {n_micro}")
+                size //= n_micro
+                g_acc = [torch.zeros_like(p, dtype=acc_dt) for p in leaves]
+                loss_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+                aux_sum = torch.zeros((), dtype=torch.float32, device=model.device)
+                for i in micro_loop(n_micro):
+                    mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+                    loss, m, g = _grads(model, leaves, mb)
+                    for a, gi in zip(g_acc, g):
+                        a.add_(gi.to(acc_dt))
+                    del g
+                    loss_sum = loss_sum + loss
+                    aux_sum = aux_sum + m["aux"]
+                grads = [a.div_(n_micro) for a in g_acc]
+                loss = loss_sum / n_micro
+                metrics = {"ce": loss - aux_sum / n_micro, "aux": aux_sum / n_micro}
 
-        _, opt, opt_metrics = adamw_update(
-            state.params, dict(zip(names, grads)), state.opt, opt_cfg
-        )
+            _, opt, opt_metrics = adamw_update(
+                state.params, dict(zip(names, grads)), state.opt, opt_cfg
+            )
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
@@ -138,11 +166,13 @@ def make_train_step(model, opt_cfg: AdamWConfig, microbatches: int | None = None
                 own[k] is not p for k, p in state.params.items()):
             raise ValueError("state.params must be the model's own parameters "
                              "(train_state_of / init_train_state)")
-        batch = {k: model._inputs(v) for k, v in batch.items()}
+        # whole on every rank: each microbatch is sharded as it is cut
+        batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
         if graph is None:
             return step(state, batch)
         return graph(state, batch)
 
+    train_step.eager = step
     return train_step
 
 
