@@ -1,0 +1,13 @@
+"""Refinement (``core/optimize_acq.py::_refine_and_rank``): the summed
+``acq.refine`` spans outside the profiled part over its GP decisions (ms),
+each span the projected-Adam steps on the promoted anchors, waited for on
+the card. A program without the span reads nothing."""
+
+
+def read(rec):
+    spans = rec["tracer"].spans_outside_profile()
+    decisions = sum(1 for s in spans if s["name"] == "suggest.posterior")
+    stage = [s["dur"] for s in spans if s["name"] == "acq.refine"]
+    if not decisions or not stage:
+        return None
+    return sum(stage) * 1e3 / decisions

@@ -46,7 +46,8 @@ def mcmc_gphps(
     from repro_torch.kernels.slice_chain.ops import slice_chain
 
     z0 = np.asarray(z0, dtype=np.float64)
-    draws = chain_draws(key, z0.shape[0], cfg)
+    with telemetry.span("gphp.draws"):
+        draws = chain_draws(key, z0.shape[0], cfg)
     samples, counts, schedule = slice_chain(x, y, mask, bounds, z0, draws, cfg, backend)
     d = x.shape[-1]
     telemetry.event(

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import acquisition as A
-from repro_torch.core import prng
+from repro_torch.core import prng, telemetry
 from repro_torch.core.gp.gp import GPPosterior, predict
 from repro_torch.core.multimetric.acquisition import constrained_ei, scalarized_ei
 
@@ -118,44 +118,54 @@ def _refine_and_rank(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stages 2–4 of the pipeline: top-k anchors → projected-Adam ascent on
     the (masked) acquisition → re-rank. ``masked_acq(x, differentiable)``
-    scores (m, d) → (m,), larger is better."""
-    with torch.no_grad():
-        anchor_vals = masked_acq(anchors)  # (num_anchors,)
-    top_idx = _descending(anchor_vals)[: cfg.num_refine]
-    x0 = anchors[top_idx]  # (num_refine, d)
+    scores (m, d) → (m,), larger is better.
+
+    Each stage is a span (``acq.anchors``, ``acq.refine``, ``acq.rerank``)
+    that, with telemetry on, waits for the card before it closes."""
+    dev = anchors.device
+    with telemetry.device_span("acq.anchors", dev):
+        with torch.no_grad():
+            anchor_vals = masked_acq(anchors)  # (num_anchors,)
+        top_idx = _descending(anchor_vals)[: cfg.num_refine]
+        x0 = anchors[top_idx]  # (num_refine, d)
 
     # --- projected Adam ascent on the acquisition -------------------------
     # Each point's acquisition depends on that point only, so the gradient
     # of the summed batch is the per-point gradient.
-    x = x0.clone()
-    m = torch.zeros_like(x0)
-    v = torch.zeros_like(x0)
-    for step in range(cfg.refine_steps):
-        t = float(step)
-        xg = x.detach().requires_grad_(True)
-        with torch.enable_grad():
-            (g,) = torch.autograd.grad(
-                masked_acq(xg, differentiable=True).sum(), xg
+    with telemetry.device_span(
+        "acq.refine", dev, steps=cfg.refine_steps, points=x0.shape[0]
+    ):
+        x = x0.clone()
+        m = torch.zeros_like(x0)
+        v = torch.zeros_like(x0)
+        for step in range(cfg.refine_steps):
+            t = float(step)
+            xg = x.detach().requires_grad_(True)
+            with torch.enable_grad():
+                (g,) = torch.autograd.grad(
+                    masked_acq(xg, differentiable=True).sum(), xg
+                )
+            g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+            m = 0.9 * m + 0.1 * g
+            v = 0.999 * v + 0.001 * g * g
+            mhat = m / (1.0 - 0.9 ** (t + 1.0))
+            vhat = v / (1.0 - 0.999 ** (t + 1.0))
+            x = torch.clamp(
+                x + cfg.refine_lr * mhat / (torch.sqrt(vhat) + 1e-8), 0.0, 1.0
             )
-        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-        m = 0.9 * m + 0.1 * g
-        v = 0.999 * v + 0.001 * g * g
-        mhat = m / (1.0 - 0.9 ** (t + 1.0))
-        vhat = v / (1.0 - 0.999 ** (t + 1.0))
-        x = torch.clamp(
-            x + cfg.refine_lr * mhat / (torch.sqrt(vhat) + 1e-8), 0.0, 1.0
-        )
 
-    with torch.no_grad():
-        ref_vals = masked_acq(x)
-    # A refined point may have walked into the exclusion zone; keep the anchor
-    # value as fallback so ranking never returns −inf when anchors were valid.
-    top_vals = anchor_vals[top_idx]
-    use_ref = ref_vals >= top_vals
-    final_x = torch.where(use_ref[:, None], x, x0)
-    final_v = torch.where(use_ref, ref_vals, top_vals)
-    order = _descending(final_v)
-    return final_x[order], final_v[order]
+    with telemetry.device_span("acq.rerank", dev):
+        with torch.no_grad():
+            ref_vals = masked_acq(x)
+        # A refined point may have walked into the exclusion zone; keep the
+        # anchor value as fallback so ranking never returns −inf when anchors
+        # were valid.
+        top_vals = anchor_vals[top_idx]
+        use_ref = ref_vals >= top_vals
+        final_x = torch.where(use_ref[:, None], x, x0)
+        final_v = torch.where(use_ref, ref_vals, top_vals)
+        order = _descending(final_v)
+        return final_x[order], final_v[order]
 
 
 def _pending_masked(score, pending: torch.Tensor, pending_mask: torch.Tensor,

@@ -452,12 +452,6 @@ class BOSuggester:
     def _tensor(self, arr, dtype=torch.float64) -> torch.Tensor:
         return torch.as_tensor(np.asarray(arr), dtype=dtype).to(self.device)
 
-    def _settle(self) -> None:
-        """With telemetry on, wait for the device so the enclosing span
-        measures the work and not just its enqueue."""
-        if telemetry.enabled() and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     # ------------------------------------------------------------------ rng
     def _next_key(self) -> np.ndarray:
         self._key, sub = prng.split(self._key)
@@ -674,17 +668,24 @@ class BOSuggester:
         work = post
         y_work = list(y_live[:n_live])
         if cfg.pending_strategy in ("liar", "kb") and len(pend_np) > 0:
-            if (
-                cfg.fantasy_block
-                and cfg.pending_strategy == "liar"
-                and len(pend_np) > 1
+            with telemetry.device_span(
+                "suggest.pending_fold", self.device, pending=len(pend_np)
             ):
-                work, y_work = self._fantasy_append_block(work, y_work, pend_np)
-            else:
-                xb = self._tensor(pend_np)
-                rows = self._pending_rows(work, xb, len(y_work))
-                for p, xq in enumerate(xb):
-                    work, y_work = self._fantasy_append(work, y_work, xq, rows[..., p, :])
+                if (
+                    cfg.fantasy_block
+                    and cfg.pending_strategy == "liar"
+                    and len(pend_np) > 1
+                ):
+                    work, y_work = self._fantasy_append_block(
+                        work, y_work, pend_np
+                    )
+                else:
+                    xb = self._tensor(pend_np)
+                    rows = self._pending_rows(work, xb, len(y_work))
+                    for p, xq in enumerate(xb):
+                        work, y_work = self._fantasy_append(
+                            work, y_work, xq, rows[..., p, :]
+                        )
         elif len(pend_np) > 0:
             n_excl = min(len(pend_np), cfg.max_pending)
             pend_buf[:n_excl] = pend_np[:n_excl]
@@ -975,11 +976,12 @@ class BOSuggester:
         def heads_for(work_now, y_block: np.ndarray, posts_now):
             if per_head:
                 return make_head(work_now.alpha[:, None, :], posts_now)
-            with telemetry.span("suggest.head_alphas", heads=len(y_block)):
+            with telemetry.device_span(
+                "suggest.head_alphas", self.device, heads=len(y_block)
+            ):
                 head_now = make_head(
                     solve_head_alphas(work_now, self._tensor(y_block))
                 )
-                self._settle()
             return head_now
 
         d = self.space.encoded_dim
@@ -993,14 +995,19 @@ class BOSuggester:
         self.cache.head_alphas = None if per_head else head.alphas
         yh_work = [list(y_heads[j, :n_live]) for j in range(len(y_heads))]
         if cfg.pending_strategy in ("liar", "kb") and len(pend_np) > 0:
-            xb = self._tensor(pend_np)
-            rows = self._pending_rows(work, xb, n_live)
-            head_rows = [self._pending_rows(hp, xb, n_live) for hp in head_work]
-            for p, xq in enumerate(xb):
-                work, yh_work, head_work = self._fantasy_append_multi(
-                    work, yh_work, xq, rows[..., p, :], head_work,
-                    [r[..., p, :] for r in head_rows],
-                )
+            with telemetry.device_span(
+                "suggest.pending_fold", self.device, pending=len(pend_np)
+            ):
+                xb = self._tensor(pend_np)
+                rows = self._pending_rows(work, xb, n_live)
+                head_rows = [
+                    self._pending_rows(hp, xb, n_live) for hp in head_work
+                ]
+                for p, xq in enumerate(xb):
+                    work, yh_work, head_work = self._fantasy_append_multi(
+                        work, yh_work, xq, rows[..., p, :], head_work,
+                        [r[..., p, :] for r in head_rows],
+                    )
             head = heads_for(work, self._pad_heads(yh_work, work), head_work)
         elif len(pend_np) > 0:
             n_excl = min(len(pend_np), cfg.max_pending)
@@ -1176,9 +1183,8 @@ class BOSuggester:
             if pool is not None:
                 pool.publish(cache.samples, self._chain_state)
                 cache.pool_version = pool.version
-            with telemetry.span("suggest.factorize", n=n):
+            with telemetry.device_span("suggest.factorize", self.device, n=n):
                 post = self._factorize(xj, yj, mj)
-                self._settle()
         elif not post_valid:
             # Cached draws (restored from a checkpoint or snapshot, adopted
             # from the pool, or arena-evicted factors) but no live
@@ -1197,19 +1203,21 @@ class BOSuggester:
             cache.obs_since_refit += new_obs
             rows = self._boundary_rows(x_all[:r], r)
             xj, yj, mj = self._pad_rows(x_all, y_std, rows)
-            with telemetry.span("suggest.factor_rebuild", n=n, boundary=r):
+            with telemetry.device_span(
+                "suggest.factor_rebuild", self.device, n=n, boundary=r
+            ):
                 post = self._factorize(xj, yj, mj)
                 post = self._append_rows(post, store, r, n, live0=len(rows))
-                self._settle()
         else:
             live0 = (
                 acct
                 if cache.inducing_sel is None
                 else len(cache.inducing_sel) + (acct - cache.inducing_n0)
             )
-            with telemetry.span("suggest.rank1_append", n=n, new=new_obs):
+            with telemetry.device_span(
+                "suggest.rank1_append", self.device, n=n, new=new_obs
+            ):
                 post = self._append_rows(cache.post, store, acct, n, live0=live0)
-                self._settle()
             cache.obs_since_refit += new_obs
 
         cache.n = n
@@ -1293,9 +1301,10 @@ class BOSuggester:
                 with telemetry.span("suggest.head_gphp_fit", n=n, head=j + 1):
                     s = self._fit_gphps(xj, yj, mj, chain_slot=j)
                 samples.append(np.asarray(s))
-                with telemetry.span("suggest.head_factorize", n=n, head=j + 1):
+                with telemetry.device_span(
+                    "suggest.head_factorize", self.device, n=n, head=j + 1
+                ):
                     posts.append(self._factorize_with(s, xj, yj, mj))
-                    self._settle()
             cache.head_samples = samples
             cache.head_posts = posts
             cache.head_n = n
@@ -1315,8 +1324,8 @@ class BOSuggester:
             mask = np.zeros(nb, dtype=bool)
             mask[:nlive] = True
             posts = []
-            with telemetry.span("suggest.head_rebuild", n=n, boundary=b,
-                                heads=m_extra):
+            with telemetry.device_span("suggest.head_rebuild", self.device,
+                                       n=n, boundary=b, heads=m_extra):
                 for j in range(m_extra):
                     hp = self._factorize_with(
                         cache.head_samples[j],
@@ -1325,20 +1334,18 @@ class BOSuggester:
                         self._tensor(mask, dtype=torch.bool),
                     )
                     posts.append(self._append_rows(hp, store, b, n, live0=nlive))
-                self._settle()
             cache.head_posts = posts
             cache.head_n = n
         elif cache.head_n < n:
             # the heads hold the live rows of store prefix head_n (the same
             # inducing set as the objective: both change only at a boundary)
             live0 = len(cache.live_rows(cache.head_n))
-            with telemetry.span("suggest.head_append", n=n,
-                                new=n - cache.head_n, heads=m_extra):
+            with telemetry.device_span("suggest.head_append", self.device, n=n,
+                                       new=n - cache.head_n, heads=m_extra):
                 cache.head_posts = [
                     self._append_rows(hp, store, cache.head_n, n, live0=live0)
                     for hp in cache.head_posts
                 ]
-                self._settle()
             cache.head_n = n
         out = []
         for j, hp in enumerate(cache.head_posts):

@@ -4,15 +4,15 @@ Observation only, never decision state
 --------------------------------------
 
 This module is the one place in the engine allowed to read host-monotonic
-time. That is safe *only* because telemetry obeys two invariants, enforced
-statically by ``tools/analysis/rules/telemetry_oneway.py``:
+time. That is safe *only* because telemetry obeys two invariants:
 
 * **One-way flow** — decision-path modules (``suggest.py``, ``service.py``,
   the distributed layer, …) may *write* telemetry (``count``/``gauge``/
-  ``observe``/``span``/``event``) but never read it back. No counter,
-  histogram, or span ever influences a suggestion, a refit cadence, or a
-  wire reply's payload. Telemetry-on and telemetry-off runs produce
-  bit-identical suggestion streams (pinned by ``tests/test_telemetry.py``).
+  ``observe``/``span``/``device_span``/``event``) but never read it back. No
+  counter, histogram, or span ever influences a suggestion, a refit cadence,
+  or a wire reply's payload. Telemetry-on and telemetry-off runs produce
+  bit-identical suggestion streams (pinned by
+  ``tests/test_torch_telemetry.py``).
 * **Never serialized with state** — nothing here may appear in
   ``state_dict()`` / ``snapshot_job()`` / engine checkpoints. A restored
   engine starts with cold counters; replay equivalence is about decisions,
@@ -30,26 +30,28 @@ backs the module-level convenience functions used at instrumentation sites::
     telemetry.gauge("arena.resident_bytes", arena.resident_bytes)
     with telemetry.span("suggest.decide", job=name, k=k):
         ...
+    with telemetry.device_span("acq.refine", x.device, steps=25):
+        ...  # waits for the card before it closes
 
 Recording is off by default and costs one attribute load + one truth test
 per site; enable it with the ``REPRO_TELEMETRY=1`` environment variable or
 ``telemetry.set_enabled(True)``. Spans nest through a thread-local stack, so
 trace events carry parent/child edges; completed spans land in a bounded
 ring buffer (oldest evicted first) and also feed a fixed-log-bucket duration
-histogram ``span.<name>``. Export with :meth:`Telemetry.export_trace`
-(JSONL, one event per line) and :meth:`Telemetry.metrics` /
-:meth:`Telemetry.render_text`; ``tools/obs_report.py`` renders the phase
-breakdown and job timeline from the JSONL.
+histogram ``span.<name>``. Read them with :meth:`Telemetry.trace_events`
+and :meth:`Telemetry.metrics` (the benchmark's traced run drains both after
+every call).
 
 The clock is injectable (tests use a fake); the default is
 ``time.monotonic`` — host-monotonic is fine here precisely because none of
-this ever feeds back into the engine.
+this ever feeds back into the engine. ``torch.profiler`` stamps device
+events on the wall clock; a reader maps them onto this clock by the offset
+between the two (``amt_bench/harness.py::DeviceTrace.to_mono``).
 """
 
 from __future__ import annotations
 
 import itertools
-import json
 import math
 import os
 import threading
@@ -61,6 +63,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 __all__ = [
     "Telemetry",
     "count",
+    "device_span",
     "enabled",
     "enabled_from_env",
     "event",
@@ -228,8 +231,19 @@ class Telemetry:
             return _NULL_SPAN
         return self._live_span(name, attrs)
 
+    def device_span(self, name: str, device: Any, **attrs: Any):
+        """``span`` around work enqueued on ``device`` (a ``torch.device``):
+        on a CUDA device it waits for the device before it closes, so it
+        times the work and not just its enqueue. While disabled it returns
+        the same shared no-op as ``span`` and waits for nothing."""
+        if not self._enabled:
+            return _NULL_SPAN
+        return self._live_span(name, attrs, device)
+
     @contextmanager
-    def _live_span(self, name: str, attrs: Dict[str, Any]) -> Iterator[None]:
+    def _live_span(
+        self, name: str, attrs: Dict[str, Any], device: Any = None
+    ) -> Iterator[None]:
         with self._lock:
             span_id = next(self._ids)
         parent_id = self._parent_id()
@@ -238,6 +252,10 @@ class Telemetry:
         t0 = self._clock()
         try:
             yield
+            if device is not None and device.type == "cuda":
+                import torch
+
+                torch.cuda.synchronize(device)
         finally:
             t1 = self._clock()
             stack.pop()
@@ -283,39 +301,10 @@ class Telemetry:
                 },
             }
 
-    def render_text(self) -> str:
-        """Human-readable metrics dump (counters, gauges, histogram stats)."""
-        m = self.metrics()
-        lines = [f"telemetry enabled={m['enabled']}"]
-        if m["counters"]:
-            lines.append("counters:")
-            lines += [f"  {k} = {v}" for k, v in m["counters"].items()]
-        if m["gauges"]:
-            lines.append("gauges:")
-            lines += [f"  {k} = {v:g}" for k, v in m["gauges"].items()]
-        if m["histograms"]:
-            lines.append("histograms:")
-            for k, h in m["histograms"].items():
-                mean = h["sum"] / h["count"] if h["count"] else 0.0
-                lines.append(
-                    f"  {k}: n={h['count']} mean={mean:.6g} "
-                    f"min={h['min']:.6g} max={h['max']:.6g}"
-                )
-        return "\n".join(lines)
-
     def trace_events(self) -> List[Dict[str, Any]]:
         """Copy of the trace ring, oldest first."""
         with self._lock:
             return [dict(e) for e in self._trace]
-
-    def export_trace(self, path: str) -> int:
-        """Write the trace ring as JSONL (one event per line); returns the
-        number of events written."""
-        events = self.trace_events()
-        with open(path, "w", encoding="utf-8") as fh:
-            for e in events:
-                fh.write(json.dumps(e) + "\n")
-        return len(events)
 
 
 def enabled_from_env() -> bool:
@@ -329,8 +318,8 @@ _GLOBAL = Telemetry(enabled=enabled_from_env())
 
 
 def get() -> Telemetry:
-    """The process-global registry (read side: exporters, the metrics verb,
-    tests — never decision paths)."""
+    """The process-global registry (read side: the metrics verb, the
+    benchmark's traced run, tests — never decision paths)."""
     return _GLOBAL
 
 
@@ -364,3 +353,7 @@ def event(name: str, **attrs: Any) -> None:
 
 def span(name: str, **attrs: Any):
     return _GLOBAL.span(name, **attrs)
+
+
+def device_span(name: str, device: Any, **attrs: Any):
+    return _GLOBAL.device_span(name, device, **attrs)
