@@ -2,9 +2,17 @@
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["CAPTURE_LOCK", "resolve_device"]
+
+#: one CUDA graph capture at a time in the process: ``torch.cuda.graph``
+#: captures on a stream shared by its instances, and synchronizes the device
+#: and frees the allocator's cache first (the train step and the
+#: acquisition refinement both capture under it)
+CAPTURE_LOCK = threading.Lock()
 
 
 def resolve_device(device=None) -> torch.device:

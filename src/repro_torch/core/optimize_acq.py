@@ -23,6 +23,15 @@ entry computed once. ``"torch"`` is the plain composition
 composition — the kernel has no backward pass — so the dense anchor sweep is
 fused while the 8-point ascent keeps exact gradients.
 
+The ascent is ~10³ small kernels a step, and launching them one by one
+bounds it by the host. On a CUDA device, EI and LCB therefore replay it
+from one CUDA graph per static shape (``_GraphedAscent``; the reference
+jits its ``lax.scan`` per static shape): the same kernels in the same order,
+on buffers the decision's tensors are copied into. The process keeps its
+graphs least recently used first, within ``GRAPH_CACHE_BYTES``. Thompson sampling
+uploads host normals inside the loop, and the multi-metric pipeline has no
+graph yet; they, and every CPU call, run the eager body.
+
 Ranking ties (anchors masked to −inf tie often) resolve to the lower index
 first, as ``jax.lax.top_k`` and ``jnp.argsort`` do: a stable sort on the
 negated values.
@@ -40,6 +49,8 @@ composition there, as in the JAX package.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -47,7 +58,9 @@ import torch
 
 from repro_torch.core import acquisition as A
 from repro_torch.core import prng, telemetry
+from repro_torch.core.device import CAPTURE_LOCK
 from repro_torch.core.gp.gp import GPPosterior, predict
+from repro_torch.core.gp.params import GPHyperParams
 from repro_torch.core.multimetric.acquisition import constrained_ei, scalarized_ei
 
 __all__ = [
@@ -72,7 +85,7 @@ class AcqOptConfig(NamedTuple):
 def _acq_values(
     post: GPPosterior,
     x: torch.Tensor,
-    y_best: torch.Tensor,
+    y_best,  # float, or a 0-d float64 tensor (the CUDA graph's buffer)
     cfg: AcqOptConfig,
     key: np.ndarray,
     *,
@@ -111,14 +124,43 @@ def _descending(vals: torch.Tensor) -> torch.Tensor:
     return torch.argsort(-vals, stable=True)
 
 
+def _adam_ascent(masked_acq, x0: torch.Tensor, cfg: AcqOptConfig) -> torch.Tensor:
+    """Stage 3: ``cfg.refine_steps`` steps of projected Adam ascent on the
+    (masked) acquisition from x0 (m, d), clipped to the unit cube. Each
+    point's acquisition depends on that point only, so the gradient of the
+    summed batch is the per-point gradient. Both the eager path and the
+    captured one (``_GraphedAscent``) run this body."""
+    x = x0.clone()
+    m = torch.zeros_like(x0)
+    v = torch.zeros_like(x0)
+    for step in range(cfg.refine_steps):
+        t = float(step)
+        xg = x.detach().requires_grad_(True)
+        with torch.enable_grad():
+            (g,) = torch.autograd.grad(
+                masked_acq(xg, differentiable=True).sum(), xg
+            )
+        g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        mhat = m / (1.0 - 0.9 ** (t + 1.0))
+        vhat = v / (1.0 - 0.999 ** (t + 1.0))
+        x = torch.clamp(
+            x + cfg.refine_lr * mhat / (torch.sqrt(vhat) + 1e-8), 0.0, 1.0
+        )
+    return x
+
+
 def _refine_and_rank(
     masked_acq,
     anchors: torch.Tensor,
     cfg: AcqOptConfig,
+    ascent=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stages 2–4 of the pipeline: top-k anchors → projected-Adam ascent on
     the (masked) acquisition → re-rank. ``masked_acq(x, differentiable)``
-    scores (m, d) → (m,), larger is better.
+    scores (m, d) → (m,), larger is better. ``ascent(x0) -> x`` runs stage
+    3 in place of the eager ``_adam_ascent`` (the CUDA graph's replay).
 
     Each stage is a span (``acq.anchors``, ``acq.refine``, ``acq.rerank``)
     that, with telemetry on, waits for the card before it closes."""
@@ -129,30 +171,14 @@ def _refine_and_rank(
         top_idx = _descending(anchor_vals)[: cfg.num_refine]
         x0 = anchors[top_idx]  # (num_refine, d)
 
-    # --- projected Adam ascent on the acquisition -------------------------
-    # Each point's acquisition depends on that point only, so the gradient
-    # of the summed batch is the per-point gradient.
     with telemetry.device_span(
         "acq.refine", dev, steps=cfg.refine_steps, points=x0.shape[0]
     ):
-        x = x0.clone()
-        m = torch.zeros_like(x0)
-        v = torch.zeros_like(x0)
-        for step in range(cfg.refine_steps):
-            t = float(step)
-            xg = x.detach().requires_grad_(True)
-            with torch.enable_grad():
-                (g,) = torch.autograd.grad(
-                    masked_acq(xg, differentiable=True).sum(), xg
-                )
-            g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
-            m = 0.9 * m + 0.1 * g
-            v = 0.999 * v + 0.001 * g * g
-            mhat = m / (1.0 - 0.9 ** (t + 1.0))
-            vhat = v / (1.0 - 0.999 ** (t + 1.0))
-            x = torch.clamp(
-                x + cfg.refine_lr * mhat / (torch.sqrt(vhat) + 1e-8), 0.0, 1.0
-            )
+        if ascent is None:
+            telemetry.count("acq.refine.eager")
+            x = _adam_ascent(masked_acq, x0, cfg)
+        else:
+            x = ascent(x0)
 
     with telemetry.device_span("acq.rerank", dev):
         with torch.no_grad():
@@ -188,17 +214,162 @@ def _pending_masked(score, pending: torch.Tensor, pending_mask: torch.Tensor,
     return masked_acq
 
 
+#: bytes the cached ascent graphs may hold together (their copies of the
+#: inputs and their private pools); past it the least recently used go
+GRAPH_CACHE_BYTES = 1 << 30
+
+
+class _GraphCache:
+    """The process's ascent graphs, one entry a static shape, shared by
+    every job of the process and bounded by their bytes: least recently
+    used first."""
+
+    def __init__(self, budget_bytes: int):
+        self.budget_bytes = budget_bytes
+        self.entries: OrderedDict = OrderedDict()
+        self.lock = threading.Lock()
+
+    def get(self, key, make):
+        """The entry of ``key`` (``make()`` at its first use), now the most
+        recently used."""
+        with self.lock:
+            entry = self.entries.pop(key, None)
+            self.entries[key] = make() if entry is None else entry
+            return self.entries[key]
+
+    def bound(self, keep) -> None:
+        """Drop the least recently used entries, never ``keep``'s, until
+        the rest fit the budget. A dropped entry that a call still holds is
+        freed when that call ends."""
+        with self.lock:
+            total = sum(e.nbytes for e in self.entries.values())
+            for key in list(self.entries):
+                if total <= self.budget_bytes:
+                    break
+                if key != keep:
+                    total -= self.entries.pop(key).nbytes
+                    telemetry.count("acq.refine.graph.evict")
+
+
+_GRAPHS = _GraphCache(GRAPH_CACHE_BYTES)
+# the devices each thread has run the eager ascent on
+_WARM = threading.local()
+
+
+def _static_inputs(post: GPPosterior, pending, pending_mask, x0) -> list:
+    """Every tensor the refinement's scorer reads, in a fixed order:
+    the posterior's (``chol_inv`` is the fused kernel's, not read here),
+    then pending, pending mask and x0."""
+    return [post.x_train, post.mask, post.chol, post.alpha, *post.params,
+            pending, pending_mask, x0]
+
+
+def _graph_key(statics: list, cfg: AcqOptConfig) -> tuple:
+    """What a capture bakes in: the device, dtype, shape and strides of
+    every static input (bucket, S, d, ``num_refine``, pending rows; a
+    factor's layout picks the triangular solve's variant, whose rounding
+    differs at large buckets) and the configuration the body reads.
+    ``y_best`` is always a 0-d float64."""
+    return (statics[-1].device,
+            tuple((t.dtype, tuple(t.shape), t.stride()) for t in statics),
+            cfg.acq, cfg.refine_steps, cfg.refine_lr, cfg.lcb_kappa,
+            cfg.exclusion_radius)
+
+
+class _GraphedAscent:
+    """Stage 3 of one static shape replayed from a CUDA graph.
+
+    The graph reads only buffers this entry owns: a copy of every static
+    input, in its layout, and ``y_best`` as a 0-d float64 tensor (a Python
+    float would be baked into the graph as a kernel argument). Each call
+    copies the decision's tensors in, replays and clones x out, all under
+    the entry's lock and on the caller's current stream; the first call
+    captures the body (recorded, not run) under the process's capture lock
+    before its replay. A replay launches the eager body's kernels in its
+    order, so its picks are the eager loop's bit for bit. ``nbytes``: the
+    copies and, once captured, the graph's private pool (the allocator's
+    reserved bytes across the capture)."""
+
+    def __init__(self, statics: list, cfg: AcqOptConfig):
+        self.cfg = cfg
+        # in the inputs' layout (a dense input's strides are kept)
+        self.bufs = [torch.empty_like(t) for t in statics]
+        x_train, mask, chol, alpha, *rest = self.bufs
+        nparams = len(GPHyperParams._fields)
+        post = GPPosterior(x_train, mask, chol, alpha,
+                           GPHyperParams(*rest[:nparams]))
+        pending, pending_mask, self.x0 = rest[nparams:]
+        # the scorer holds the buffers, not the entry: an entry dropped from
+        # the cache is freed at once, never by a collection during a capture
+        y_best = self.y_best = torch.zeros((), dtype=torch.float64,
+                                           device=self.x0.device)
+
+        def score(x: torch.Tensor, differentiable: bool) -> torch.Tensor:
+            return _acq_values(post, x, y_best, cfg, None,
+                               differentiable=differentiable)
+
+        self.masked_acq = _pending_masked(score, pending, pending_mask, cfg)
+        self.graph = self.out = None
+        self.nbytes = sum(b.nbytes for b in self.bufs) + y_best.nbytes
+        self.lock = threading.Lock()
+
+    def __call__(self, statics: list, y_best: float) -> torch.Tensor:
+        with self.lock:
+            for buf, t in zip(self.bufs, statics):
+                buf.copy_(t)
+            self.y_best.fill_(y_best)
+            if self.graph is None:
+                self._capture()
+            else:
+                telemetry.count("acq.refine.graph.replay")
+            self.graph.replay()
+            return self.out.clone()
+
+    def _capture(self) -> None:
+        telemetry.count("acq.refine.graph.capture")
+        dev = self.x0.device
+        warm = _WARM.__dict__.setdefault("devices", set())
+        if dev not in warm:
+            # a thread's first capture on a device: cuBLAS's handles,
+            # autograd's device thread and the allocator warm up on one
+            # eager ascent
+            _adam_ascent(self.masked_acq, self.x0, self.cfg)
+            warm.add(dev)
+        graph = torch.cuda.CUDAGraph()
+        with CAPTURE_LOCK:
+            # thread-local: other threads keep launching while this one
+            # captures
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                reserved = torch.cuda.memory_reserved(dev)
+                self.out = _adam_ascent(self.masked_acq, self.x0, self.cfg)
+            self.nbytes += max(0, torch.cuda.memory_reserved(dev) - reserved)
+        self.graph = graph
+
+
+def _graphed_ascent(post, y_best, pending, pending_mask, x0, cfg) -> torch.Tensor:
+    """Stage 3 from the process's graph of this static shape (captured at
+    the shape's first use)."""
+    statics = _static_inputs(post, pending, pending_mask, x0)
+    key = _graph_key(statics, cfg)
+    x = _GRAPHS.get(key, lambda: _GraphedAscent(statics, cfg))(statics, y_best)
+    _GRAPHS.bound(keep=key)
+    return x
+
+
 def optimize_acquisition(
     post: GPPosterior,
     anchors: torch.Tensor,  # (num_anchors, d) Sobol points in the unit cube
-    y_best: torch.Tensor,  # scalar: best standardized observation
+    y_best: float,  # best standardized observation
     pending: torch.Tensor,  # (p, d) encoded pending candidates (may be padding)
     pending_mask: torch.Tensor,  # (p,) bool
     key: np.ndarray,
     cfg: AcqOptConfig = AcqOptConfig(),
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Return (candidates, acq_values): (num_refine, d) refined points sorted
-    best-first, with pending-exclusion applied."""
+    best-first, with pending-exclusion applied. On a CUDA device EI and LCB
+    refine through the shape's CUDA graph (``_GraphedAscent``); Thompson
+    draws host normals inside the loop and, like every CPU call, runs the
+    eager body."""
     k_ts, _ = prng.split(key)
 
     def score(x: torch.Tensor, differentiable: bool) -> torch.Tensor:
@@ -206,7 +377,11 @@ def optimize_acquisition(
                            differentiable=differentiable)
 
     masked_acq = _pending_masked(score, pending, pending_mask, cfg)
-    return _refine_and_rank(masked_acq, anchors, cfg)
+    ascent = None
+    if anchors.device.type == "cuda" and cfg.acq in ("ei", "lcb"):
+        def ascent(x0: torch.Tensor) -> torch.Tensor:
+            return _graphed_ascent(post, y_best, pending, pending_mask, x0, cfg)
+    return _refine_and_rank(masked_acq, anchors, cfg, ascent)
 
 
 class MultiMetricHead(NamedTuple):

@@ -35,11 +35,11 @@ by the batch-sharding ways, as the JAX dry-run clamps it.
 
 from __future__ import annotations
 
-import threading
 from typing import Any, Dict, Mapping, NamedTuple
 
 import torch
 
+from repro_torch.core.device import CAPTURE_LOCK
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, adamw_update
 
 __all__ = ["TrainState", "make_train_step", "make_eval_step", "init_train_state",
@@ -48,9 +48,6 @@ __all__ = ["TrainState", "make_train_step", "make_eval_step", "init_train_state"
 #: eager steps before a step is captured as a CUDA graph (cuBLAS handles,
 #: autograd's device threads and the allocator warm up on them)
 WARMUP_STEPS = 2
-# one capture at a time in the process: torch.cuda.graph captures on a
-# stream shared by its instances, and frees the allocator's cache first
-_CAPTURE_LOCK = threading.Lock()
 
 
 class TrainState(NamedTuple):
@@ -202,7 +199,7 @@ class _GraphedStep:
                 return self.step(state, batch)
             self.inputs = {k: v.clone() for k, v in batch.items()}
             graph = torch.cuda.CUDAGraph()
-            with _CAPTURE_LOCK:
+            with CAPTURE_LOCK:
                 # thread-local: the other trials' threads and the tuner keep
                 # launching and synchronizing while this thread captures
                 with torch.cuda.graph(graph, capture_error_mode="thread_local"):
