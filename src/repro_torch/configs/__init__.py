@@ -1,4 +1,5 @@
 from repro_torch.configs.base import (
+    Mamba2Settings,
     MambaSettings,
     ModelConfig,
     MoESettings,
@@ -14,6 +15,7 @@ from repro_torch.configs.registry import (
 )
 
 __all__ = [
+    "Mamba2Settings",
     "MambaSettings",
     "ModelConfig",
     "MoESettings",

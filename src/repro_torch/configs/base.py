@@ -5,7 +5,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["MoESettings", "MambaSettings", "RGLRUSettings", "ModelConfig", "ShapeConfig", "SHAPES"]
+__all__ = ["MoESettings", "MambaSettings", "Mamba2Settings", "RGLRUSettings", "ModelConfig",
+           "ShapeConfig", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -21,6 +22,15 @@ class MoESettings:
     #   the dispatch crosses the mesh as an all-to-all of only the routed
     #   tokens (≈32× less traffic at qwen3-moe scale; EXPERIMENTS.md §Perf).
     dispatch: str = "allreduce"
+    # a shared SwiGLU expert of this width beside the routed ones (granite
+    # 4.0-H); 0 = none
+    d_shared: int = 0
+    # the chip's share of an expert-parallel layer: the experts
+    # first_held … first_held + num_held − 1 are held here, the router still
+    # scores all num_experts and a pair routed elsewhere adds nothing;
+    # 0 = every expert is held
+    num_held: int = 0
+    first_held: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +44,24 @@ class MambaSettings:
     # steps inside the body cuts carry traffic by K× (the Pallas kernel's
     # VMEM-resident carry is the limit of this lever).
     time_unroll: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Settings:
+    """Mamba-2 (SSD) mixer: ``num_heads`` heads of ``head_dim`` channels
+    (d_inner = num_heads·head_dim), a state of ``d_state`` per head, B and C
+    shared by the heads of each of ``n_groups`` groups, a causal depthwise
+    conv of width ``d_conv`` and the chunk length of the chunked scan."""
+    num_heads: int
+    head_dim: int
+    d_state: int = 128
+    n_groups: int = 1
+    d_conv: int = 4
+    chunk_size: int = 256
+
+    @property
+    def d_inner(self) -> int:
+        return self.num_heads * self.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,11 +85,13 @@ class ModelConfig:
     d_ff: int
     # Block pattern, repeated over the depth. Kinds:
     #   "attn"  — global attention;  "swa" — sliding-window attention;
-    #   "mamba" — Mamba-1 block;     "rglru" — RG-LRU recurrent block.
+    #   "mamba" — Mamba-1 block;     "rglru" — RG-LRU recurrent block;
+    #   "mamba2" — Mamba-2 (SSD) mixer, trained only (no prefill/decode).
     block_pattern: Tuple[str, ...] = ("attn",)
     mlp: str = "swiglu"  # "swiglu" | "gelu" | "relu2"
     moe: Optional[MoESettings] = None
     mamba: Optional[MambaSettings] = None
+    mamba2: Optional[Mamba2Settings] = None
     rglru: Optional[RGLRUSettings] = None
     window: int = 0  # sliding-window size for "swa" blocks
     attn_softcap: float = 0.0
@@ -72,6 +102,13 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     rope_theta_local: Optional[float] = None  # swa blocks (gemma3: 10k vs 1M)
     rope_fraction: float = 1.0  # partial rotary (minitron: 0.5)
+    rope: bool = True  # False: attention without position embeddings (NoPE)
+    attn_scale: float = 0.0  # softmax scale of the scores; 0 → head_dim^-0.5
+    # muP multipliers (granite): embeddings ×, each sub-block's output ×
+    # before its residual add, logits ÷; at 1.0 no operation is added
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
     embed_inputs: bool = False  # stub frontend supplies (B,S,D) embeddings
     embed_scale: bool = False  # multiply embeddings by sqrt(d_model) (gemma)
     tie_embeddings: bool = True
@@ -82,6 +119,10 @@ class ModelConfig:
     # distribution/memory knobs (per-arch defaults; hillclimb levers)
     microbatches: int = 1  # gradient-accumulation splits of the global batch
     remat: bool = True  # checkpoint each scanned block
+    # what one checkpoint holds under remat: a period of the block pattern
+    # (as the JAX package scans them) or a single layer, for a model whose
+    # period is most of its depth (granite 4.0-H: 10 layers)
+    remat_unit: str = "period"
 
     # ------------------------------------------------------------- derived
     @property

@@ -1,4 +1,5 @@
-"""Architecture registry: the 10 assigned configs + tiny smoke variants.
+"""Architecture registry: the 10 assigned configs, granite-4.0-h-small (the
+port's own: the JAX package has no Mamba-2 mixer) + tiny smoke variants.
 
 Every entry is constructed from the published configuration (sources in
 DESIGN.md). ``tiny()`` derives a reduced same-family config for CPU smoke
@@ -15,6 +16,7 @@ import dataclasses
 from typing import Callable, Dict
 
 from repro_torch.configs.base import (
+    Mamba2Settings,
     MambaSettings,
     ModelConfig,
     MoESettings,
@@ -26,6 +28,7 @@ from repro_torch.configs.musicgen_large import config as _musicgen_large
 from repro_torch.configs.internvl2_1b import config as _internvl2_1b
 from repro_torch.configs.falcon_mamba_7b import config as _falcon_mamba_7b
 from repro_torch.configs.granite_moe_1b import config as _granite_moe_1b
+from repro_torch.configs.granite_4_0_h_small import config as _granite_4_0_h_small
 from repro_torch.configs.qwen3_moe_235b import config as _qwen3_moe_235b
 from repro_torch.configs.gemma3_27b import config as _gemma3_27b
 from repro_torch.configs.qwen25_3b import config as _qwen25_3b
@@ -47,6 +50,7 @@ ARCHITECTURES: Dict[str, Callable[[], ModelConfig]] = {
     "minitron-4b": _minitron_4b,
     "h2o-danube-3-4b": _h2o_danube3_4b,
     "recurrentgemma-9b": _recurrentgemma_9b,
+    "granite-4.0-h-small": _granite_4_0_h_small,
 }
 
 
@@ -84,9 +88,13 @@ def tiny(cfg: ModelConfig) -> ModelConfig:
             num_experts=4, top_k=2, d_expert=32,
             capacity_factor=cfg.moe.capacity_factor,
             aux_loss_weight=cfg.moe.aux_loss_weight,
+            d_shared=48 if cfg.moe.d_shared else 0,
         )
     if cfg.mamba is not None:
         repl["mamba"] = MambaSettings(d_inner=128, d_state=8, d_conv=4, dt_rank=8)
+    if cfg.mamba2 is not None:
+        repl["mamba2"] = Mamba2Settings(num_heads=4, head_dim=16, d_state=8,
+                                        n_groups=cfg.mamba2.n_groups, d_conv=4, chunk_size=8)
     if cfg.rglru is not None:
         repl["rglru"] = RGLRUSettings(d_inner=64, conv_width=4, c=8.0)
     return dataclasses.replace(cfg, **repl)

@@ -32,6 +32,8 @@ backs the module-level convenience functions used at instrumentation sites::
         ...
     with telemetry.device_span("acq.refine", x.device, steps=25):
         ...  # waits for the card before it closes
+    with telemetry.fenced_span("mamba2.ssd", x.device):
+        ...  # waits for the card before it opens, too
 
 Recording is off by default and costs one attribute load + one truth test
 per site; enable it with the ``REPRO_TELEMETRY=1`` environment variable or
@@ -67,9 +69,11 @@ __all__ = [
     "enabled",
     "enabled_from_env",
     "event",
+    "fenced_span",
     "gauge",
     "get",
     "observe",
+    "recording",
     "set_enabled",
     "span",
 ]
@@ -240,6 +244,32 @@ class Telemetry:
             return _NULL_SPAN
         return self._live_span(name, attrs, device)
 
+    def recording(self, device: Any) -> bool:
+        """True while recording is on and no CUDA stream of this thread
+        captures a graph: the test for a site that would read a device value
+        or wait for the device, neither of which a capture allows."""
+        if not self._enabled:
+            return False
+        if getattr(device, "type", None) == "cuda":
+            import torch
+
+            return not torch.cuda.is_current_stream_capturing()
+        return True
+
+    def fenced_span(self, name: str, device: Any, **attrs: Any):
+        """``device_span`` that also waits for ``device`` before it opens, so
+        that the device work starting inside the span is the work launched
+        inside it, which a device trace can then attribute to the span. The
+        shared no-op while recording is off and while this thread's CUDA
+        stream captures a graph (``recording``)."""
+        if not self.recording(device):
+            return _NULL_SPAN
+        if device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(device)
+        return self._live_span(name, attrs, device)
+
     @contextmanager
     def _live_span(
         self, name: str, attrs: Dict[str, Any], device: Any = None
@@ -357,3 +387,11 @@ def span(name: str, **attrs: Any):
 
 def device_span(name: str, device: Any, **attrs: Any):
     return _GLOBAL.device_span(name, device, **attrs)
+
+
+def fenced_span(name: str, device: Any, **attrs: Any):
+    return _GLOBAL.fenced_span(name, device, **attrs)
+
+
+def recording(device: Any) -> bool:
+    return _GLOBAL.recording(device)

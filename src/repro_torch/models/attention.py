@@ -2,7 +2,9 @@
 
 Variants covered, as in the JAX package: GQA with any (num_heads,
 num_kv_heads) incl. MHA and MQA; RoPE with a configurable theta, partial
-rotary fraction and a separate local theta for sliding-window layers;
+rotary fraction and a separate local theta for sliding-window layers, or
+no position embedding at all (``cfg.rope`` False: NoPE, granite 4.0-H) and
+a configured softmax scale (``cfg.attn_scale``; the port's own options);
 sliding-window attention ("swa" blocks) with ring-buffer decode caches;
 attention logit soft-capping, QK RMS-norm and optional QKV biases.
 
@@ -86,7 +88,8 @@ def _heads(x: torch.Tensor, w: torch.Tensor, ctx: ShardCtx = NO_MESH,
 
 
 def _project_qkv(x, p, cfg, positions, theta, ctx: ShardCtx = NO_MESH):
-    """x: (B,S,D) -> q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh), roped + normed."""
+    """x: (B,S,D) -> q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh), normed and, unless
+    ``cfg.rope`` is False, roped."""
     cdt = x.dtype
     q = _heads(x, p.wq, ctx)
     k, v = _heads(x, p.wk, ctx, "kv_heads"), _heads(x, p.wv, ctx, "kv_heads")
@@ -97,9 +100,10 @@ def _project_qkv(x, p, cfg, positions, theta, ctx: ShardCtx = NO_MESH):
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    inv_freq = rope_freqs(cfg.head_dim, theta, cfg.rope_fraction, device=x.device)
-    q = apply_rope(q, positions, inv_freq)
-    k = apply_rope(k, positions, inv_freq)
+    if cfg.rope:
+        inv_freq = rope_freqs(cfg.head_dim, theta, cfg.rope_fraction, device=x.device)
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
     return q, k, v
 
 
@@ -111,7 +115,7 @@ def _gqa_scores(q_chunk, k, mask, cfg):
     b, c, hq, dh = q_chunk.shape
     qg = q_chunk.reshape(b, c, hkv, hq // hkv, dh)
     scores = torch.einsum("bchgd,bshd->bhgcs", qg, k).float()
-    scores = scores * (dh**-0.5)
+    scores = scores * (cfg.attn_scale or dh**-0.5)
     if cfg.attn_softcap > 0:
         scores = cfg.attn_softcap * torch.tanh(scores / cfg.attn_softcap)
     return torch.where(mask[:, None, None, :, :], scores, _NEG_INF)
@@ -173,6 +177,9 @@ def _attend(q, k, v, positions, cfg, window: int, impl: str, q_chunk: int,
     hq, hkv = q.shape[2], k.shape[2]
     spec = ctx.spec(q_axes, q.shape) if ctx.active else ()
     q_entry = spec[2] if len(spec) > 2 else None
+
+    if impl == "kernel" and cfg.attn_scale:
+        raise NotImplementedError("the flash-attention kernel scales by head_dim^-0.5 only")
 
     def local(ql, kl, vl, pos):
         kl, vl = _local_kv(ql, kl, vl, hq, hkv, q_entry, ctx)

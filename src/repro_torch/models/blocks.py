@@ -1,9 +1,10 @@
-"""Decoder block of the port: token mixer (attn/swa/mamba/rglru) + MLP
-(dense or MoE).
+"""Decoder block of the port: token mixer (attn/swa/mamba/mamba2/rglru) +
+MLP (dense or MoE).
 
 One *block* = pre-norm mixer + residual, then (if the arch has an FFN)
 pre-norm MLP + residual. Gemma-3 style ``sandwich_norm`` adds post-norms on
-both sub-block outputs.
+both sub-block outputs; granite's ``residual_multiplier`` scales each
+sub-block's output before its residual add (x + m·f(norm(x))).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from repro_torch.models.mamba import (
     mamba_fwd,
     mamba_params,
 )
+from repro_torch.models.mamba2 import mamba2_fwd, mamba2_params
 from repro_torch.models.mlp import mlp_fwd, mlp_params, moe_fwd, moe_params
 from repro_torch.models.rglru import (
     init_rglru_cache,
@@ -48,6 +50,8 @@ def block_params(cfg, kind: str) -> ParamModule:
         p.attn = attention_params(cfg)
     elif kind == "mamba":
         p.mixer = mamba_params(cfg)
+    elif kind == "mamba2":
+        p.mixer = mamba2_params(cfg)
     elif kind == "rglru":
         p.mixer = rglru_params(cfg)
     else:
@@ -83,8 +87,14 @@ def _mlp_residual(x, p, cfg, ctx: ShardCtx, constrain: bool):
             h = mlp_fwd(h, p.mlp, cfg, ctx)
         if cfg.sandwich_norm:
             h = rms_norm(h, p.ln2_post, cfg.norm_eps)
-        x = x + h
+        x = x + _scaled(h, cfg)
     return x, aux
+
+
+def _scaled(h, cfg):
+    """A sub-block's output times ``cfg.residual_multiplier`` (no operation
+    at 1.0)."""
+    return h if cfg.residual_multiplier == 1.0 else h * cfg.residual_multiplier
 
 
 def block_fwd(
@@ -99,7 +109,8 @@ def block_fwd(
     """Returns (x, mixer state, aux loss): the state is (k, v) for attention
     blocks, the decode cache {"conv", "ssm"} for mamba and {"conv", "h"} for
     rglru blocks — the prefill turns it into the block's decode cache, the
-    training forward drops it; the aux loss is the MoE block's
+    training forward drops it — and None for mamba2 blocks, which train
+    only (on no mesh); the aux loss is the MoE block's
     load-balancing loss (float32), None for a dense FFN, where the JAX
     package returns 0."""
     # the sequence-parallel boundary sits on the normed tensor, as in the
@@ -113,11 +124,15 @@ def block_fwd(
         )
     elif kind == "mamba":
         h, state = mamba_fwd(h, p.mixer, cfg, impl=impl, ctx=ctx)
+    elif kind == "mamba2":
+        if ctx.active:
+            raise NotImplementedError("mamba2 blocks on a mesh")
+        h, state = mamba2_fwd(h, p.mixer, cfg), None
     else:  # rglru
         h, state = rglru_fwd(h, p.mixer, cfg, impl=impl, ctx=ctx)
     if cfg.sandwich_norm:
         h = rms_norm(h, p.ln1_post, cfg.norm_eps)
-    x, aux = _mlp_residual(x + h, p, cfg, ctx, constrain=True)
+    x, aux = _mlp_residual(x + _scaled(h, cfg), p, cfg, ctx, constrain=True)
     return x, state, aux
 
 
@@ -152,4 +167,4 @@ def block_decode(
         h, cache = rglru_decode(h, p.mixer, cfg, cache, ctx=ctx)
     if cfg.sandwich_norm:
         h = rms_norm(h, p.ln1_post, cfg.norm_eps)
-    return _mlp_residual(x + h, p, cfg, ctx, constrain=False)[0], cache
+    return _mlp_residual(x + _scaled(h, cfg), p, cfg, ctx, constrain=False)[0], cache

@@ -38,14 +38,22 @@ __all__ = [
     "ShardCtx",
     "NO_MESH",
     "fill_param",
+    "mamba2_init",
     "rms_norm",
     "softcap",
     "rope_freqs",
     "apply_rope",
 ]
 
-# the JAX Builder's rules (src/repro/models/common.py ``Builder.param``)
-INITS = ("normal", "zeros", "ones", "uniform", "constant")
+# the JAX Builder's rules (src/repro/models/common.py ``Builder.param``), and
+# the Mamba-2 rules of the port's own mixer (``models/mamba2.py``)
+INITS = ("normal", "zeros", "ones", "uniform", "constant", "mamba2_a_log", "mamba2_dt_bias")
+#: Mamba-2's published initialisation (mamba_ssm ``Mamba2``): A uniform in
+#: [1, 16], stored as log A; Δ log-uniform in [1e-3, 1e-1] (floored at 1e-4),
+#: stored as softplus⁻¹(Δ), the bias of the Δ projection
+MAMBA2_A_RANGE = (1.0, 16.0)
+MAMBA2_DT_RANGE = (1e-3, 1e-1)
+MAMBA2_DT_FLOOR = 1e-4
 _SQRT2 = math.sqrt(2.0)
 # uniform bounds of a standard normal truncated to [-2, 2]: erf(±2/√2)
 _TN_LO = math.erf(-2.0 / _SQRT2)
@@ -56,7 +64,8 @@ class ParamModule(nn.Module):
     """A module whose parameters are declared with the JAX ``Builder``'s
     initialisation rules (``normal`` — a standard normal truncated to
     [−2, 2], times ``scale`` — ``uniform`` on [−scale, scale], ``zeros``,
-    ``ones`` and ``constant``). Parameters are created on the ``meta``
+    ``ones`` and ``constant``) or Mamba-2's (``mamba2_a_log``,
+    ``mamba2_dt_bias``; see ``mamba2_init``). Parameters are created on the ``meta``
     device without gradients; ``training.train_step.train_state_of`` turns
     them on for training. ``logical_axes`` names each dim for the sharding
     rules (``distributed.sharding``), as ``Builder.param``'s do."""
@@ -197,7 +206,8 @@ def fill_param(p: torch.Tensor, init: str, scale: float, seed: int, path: str) -
     The truncated normal is the inverse-CDF construction ``jax.random``
     uses (uniform on [erf(−2/√2), erf(2/√2)] → √2·erf⁻¹), computed in
     float32 and cast to the parameter's dtype; the bits differ from JAX's.
-    A rule the JAX package does not know raises."""
+    The Mamba-2 rules map a uniform draw through ``mamba2_init``. Any other
+    rule raises."""
     if init == "zeros":
         p.zero_()
         return
@@ -207,18 +217,35 @@ def fill_param(p: torch.Tensor, init: str, scale: float, seed: int, path: str) -
     if init == "constant":
         p.fill_(scale)
         return
-    if init not in ("normal", "uniform"):
+    if init not in ("normal", "uniform", "mamba2_a_log", "mamba2_dt_bias"):
         raise ValueError(f"unknown init {init!r}")
     gen = torch.Generator(device=p.device)
     gen.manual_seed(_path_seed(seed, path))
     out = p if p.dtype == torch.float32 else torch.empty_like(p, dtype=torch.float32)
-    if init == "uniform":
+    if init.startswith("mamba2_"):
+        out.copy_(mamba2_init(init, out.uniform_(0.0, 1.0, generator=gen)))
+    elif init == "uniform":
         out.uniform_(-1.0, 1.0, generator=gen).mul_(scale)
     else:
         out.uniform_(_TN_LO, _TN_HI, generator=gen)
         out.erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0).mul_(scale)
     if out is not p:
         p.copy_(out)
+
+
+def mamba2_init(init: str, u: torch.Tensor) -> torch.Tensor:
+    """Mamba-2's rule on uniform draws ``u`` in [0, 1): ``mamba2_a_log`` →
+    log A, A = lo + (hi − lo)·u over ``MAMBA2_A_RANGE``; ``mamba2_dt_bias``
+    → softplus⁻¹(Δ), Δ = exp(log lo + u·(log hi − log lo)) over
+    ``MAMBA2_DT_RANGE``, floored at ``MAMBA2_DT_FLOOR``."""
+    if init == "mamba2_a_log":
+        lo, hi = MAMBA2_A_RANGE
+        return torch.log(lo + (hi - lo) * u)
+    if init == "mamba2_dt_bias":
+        lo, hi = MAMBA2_DT_RANGE
+        dt = torch.exp(math.log(lo) + u * (math.log(hi) - math.log(lo))).clamp(min=MAMBA2_DT_FLOOR)
+        return dt + torch.log(-torch.expm1(-dt))
+    raise ValueError(f"unknown Mamba-2 init {init!r}")
 
 
 # ---------------------------------------------------------------------------

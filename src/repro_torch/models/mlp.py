@@ -28,6 +28,15 @@ The load-balancing auxiliary loss follows Switch Transformer:
 aux = E · Σ_e f_e·P_e (f_e = fraction of tokens whose top-1 is e, carrying
 no gradient; P_e = mean router probability of e), times ``aux_loss_weight``.
 
+The chip's share of an expert-parallel layer (``MoESettings.num_held``):
+the layer holds the experts first_held … first_held + num_held − 1 only.
+The router scores all E experts and routing, slots and the aux loss are as
+above over all of them; a pair routed to an expert held elsewhere is left
+out here (its part of the result is the other chips'), so the layer returns
+this chip's part. Nothing stands in for the absent chips. A shared expert
+(``MoESettings.d_shared``, granite 4.0-H) is a SwiGLU FFN that every token
+passes through beside the routed ones; its output is added to theirs.
+
 On a mesh the tokens are laid out as W rows of Tl (W = 1 for the global
 dispatch, the batch-sharding ways for ``dispatch="local"``). Routing,
 dispatch and combine are index work on a row and run on each rank's rows
@@ -45,6 +54,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import telemetry
 from repro_torch.models.common import NO_MESH, ParamModule, ShardCtx
 
 __all__ = ["mlp_params", "mlp_fwd", "moe_params", "moe_fwd"]
@@ -82,15 +92,21 @@ def mlp_fwd(x: torch.Tensor, p: ParamModule, cfg, ctx: ShardCtx = NO_MESH) -> to
 # ---------------------------------------------------------------------------
 def moe_params(cfg) -> ParamModule:
     d, e, f = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_expert
+    held = cfg.moe.num_held or e
     p = ParamModule()
     p.declare("router", (d, e), scale=d**-0.5, logical_axes=("fsdp", None))
-    p.declare("w1", (e, d, f), scale=d**-0.5,
+    p.declare("w1", (held, d, f), scale=d**-0.5,
               logical_axes=("experts", "fsdp", "expert_ffn"))
-    p.declare("w2", (e, f, d), scale=f**-0.5,
+    p.declare("w2", (held, f, d), scale=f**-0.5,
               logical_axes=("experts", "expert_ffn", "fsdp"))
     if cfg.mlp == "swiglu":
-        p.declare("w3", (e, d, f), scale=d**-0.5,
+        p.declare("w3", (held, d, f), scale=d**-0.5,
                   logical_axes=("experts", "fsdp", "expert_ffn"))
+    if cfg.moe.d_shared:
+        fs = cfg.moe.d_shared
+        p.declare("shared_w1", (d, fs), scale=d**-0.5, logical_axes=("fsdp", "ffn"))
+        p.declare("shared_w3", (d, fs), scale=d**-0.5, logical_axes=("fsdp", "ffn"))
+        p.declare("shared_w2", (fs, d), scale=fs**-0.5, logical_axes=("ffn", "fsdp"))
     return p
 
 
@@ -214,10 +230,35 @@ def _expert_ffn(ei: torch.Tensor, p: ParamModule, cfg, ctx: ShardCtx = NO_MESH) 
                                         ctx.mesh_axes(inner))])
 
 
+def _held_share(top_e, keep, moe):
+    """The pairs of the experts this chip holds: (each pair's expert among
+    the held ones (W, Tl, k), keep (W, Tl·k) — kept and held — and held
+    (W, Tl, k))."""
+    local = top_e - moe.first_held
+    held = (local >= 0) & (local < moe.num_held)
+    return local, keep & held.reshape(keep.shape), held
+
+
+def _count_pairs(keep, held) -> None:
+    """The counters ``moe.pairs_held`` (pairs routed to a held expert) and
+    ``moe.pairs_dropped`` (those of them past capacity); ``held`` None when
+    every expert is held. They read the device, so they count only while
+    telemetry records and no graph is being captured."""
+    if not telemetry.recording(keep.device):
+        return
+    if held is None:
+        n_held, kept = keep.numel(), int(keep.sum())
+    else:
+        n_held, kept = int(held.sum()), int(keep.sum())
+    telemetry.count("moe.pairs_held", n_held)
+    telemetry.count("moe.pairs_dropped", n_held - kept)
+
+
 def _moe_experts(xt: torch.Tensor, p: ParamModule, cfg, capacity: int,
                  ctx: ShardCtx = NO_MESH):
     """The MoE block on W rows of tokens xt (W, Tl, D), each row with its
-    own ``capacity`` slots an expert; returns (out (W, Tl, D), aux)."""
+    own ``capacity`` slots an expert; returns (out (W, Tl, D), aux): with
+    ``num_held`` set, the held experts' part of out."""
     moe = cfg.moe
     cdt = xt.dtype
     w, t_loc, d = xt.shape
@@ -236,24 +277,42 @@ def _moe_experts(xt: torch.Tensor, p: ParamModule, cfg, capacity: int,
     p_e = probs.reshape(-1, e).mean(0)
     aux = e * torch.sum(f_e * p_e) * moe.aux_loss_weight
 
-    ei, src = ctx.local_call(
-        lambda x_, e_, p_, k_: _dispatch_rows(x_, e_, p_, k_, capacity, e),
-        [(xt, ("batch", None, "embed")), (top_e, rows), (pos, rows[:2]), (keep, rows[:2])],
-        [(("batch", None, None, "embed"), (w, e, capacity, d)),
-         (rows[:2], (w, e * capacity))])
-    # (W, E, C, D) → (E, W·C, D): each expert's slots of every row
-    ei = ctx.constrain(ei, ("batch", None, None, "embed"))
-    ei = ctx.constrain(ei.transpose(0, 1).reshape(e, w * capacity, d), ("experts", None, "embed"))
+    held = None
+    if moe.num_held:
+        if ctx.active:
+            raise NotImplementedError("an expert share (num_held) on a mesh")
+        top_e, keep, held = _held_share(top_e, keep, moe)
+        e = moe.num_held
+    _count_pairs(keep, held)
 
-    eo = ctx.constrain(_expert_ffn(ei, p, cfg, ctx), ("experts", None, "embed"))  # (E, W·C, D)
-    eo = ctx.constrain(eo.reshape(e, w, capacity, d).transpose(0, 1),
-                       ("batch", None, None, "embed"))
+    with telemetry.fenced_span("moe.experts", xt.device):
+        ei, src = ctx.local_call(
+            lambda x_, e_, p_, k_: _dispatch_rows(x_, e_, p_, k_, capacity, e),
+            [(xt, ("batch", None, "embed")), (top_e, rows), (pos, rows[:2]), (keep, rows[:2])],
+            [(("batch", None, None, "embed"), (w, e, capacity, d)),
+             (rows[:2], (w, e * capacity))])
+        # (W, E, C, D) → (E, W·C, D): each expert's slots of every row
+        ei = ctx.constrain(ei, ("batch", None, None, "embed"))
+        ei = ctx.constrain(ei.transpose(0, 1).reshape(e, w * capacity, d),
+                           ("experts", None, "embed"))
 
-    out = ctx.local_call(
-        _combine_rows,
-        [(eo, ("batch", None, None, "embed")), (src, rows[:2]), (top_p, rows)],
-        [(("batch", None, "embed"), (w, t_loc, d))])
+        eo = ctx.constrain(_expert_ffn(ei, p, cfg, ctx), ("experts", None, "embed"))  # (E, W·C, D)
+        eo = ctx.constrain(eo.reshape(e, w, capacity, d).transpose(0, 1),
+                           ("batch", None, None, "embed"))
+
+        out = ctx.local_call(
+            _combine_rows,
+            [(eo, ("batch", None, None, "embed")), (src, rows[:2]), (top_p, rows)],
+            [(("batch", None, "embed"), (w, t_loc, d))])
     return out, aux
+
+
+def _shared_ffn(x: torch.Tensor, p: ParamModule) -> torch.Tensor:
+    """The shared expert: SiLU(x·W1) ⊙ (x·W3) · W2, every token."""
+    cdt = x.dtype
+    with telemetry.fenced_span("moe.shared", x.device):
+        h = F.silu(x @ p.shared_w1.to(cdt)) * (x @ p.shared_w3.to(cdt))
+        return h @ p.shared_w2.to(cdt)
 
 
 def moe_fwd(x: torch.Tensor, p: ParamModule, cfg,
@@ -268,7 +327,12 @@ def moe_fwd(x: torch.Tensor, p: ParamModule, cfg,
     xt = ctx.constrain(x.reshape(tokens, d), ("batch", "embed"))
     out, aux = _moe_experts(xt.reshape(1, tokens, d), p, cfg, capacity, ctx)
     out = ctx.constrain(out.reshape(tokens, d), ("batch", "embed"))
-    return out.reshape(bsz, seq, d), aux
+    out = out.reshape(bsz, seq, d)
+    if moe.d_shared:
+        if ctx.active:
+            raise NotImplementedError("a shared expert (d_shared) on a mesh")
+        out = out + _shared_ffn(x, p)
+    return out, aux
 
 
 def _moe_fwd_local(x: torch.Tensor, p: ParamModule, cfg,
@@ -287,5 +351,9 @@ def _moe_fwd_local(x: torch.Tensor, p: ParamModule, cfg,
     c_loc = int(math.ceil(t_loc * moe.top_k / moe.num_experts * moe.capacity_factor))
     xt = ctx.constrain(x.reshape(w, t_loc, d), ("batch", None, "embed"))
     out, aux = _moe_experts(xt, p, cfg, c_loc, ctx)
-    out = ctx.constrain(out, ("batch", None, "embed"))
-    return out.reshape(bsz, seq, d), aux
+    out = ctx.constrain(out, ("batch", None, "embed")).reshape(bsz, seq, d)
+    if moe.d_shared:
+        if ctx.active:
+            raise NotImplementedError("a shared expert (d_shared) on a mesh")
+        out = out + _shared_ffn(x, p)
+    return out, aux

@@ -12,7 +12,8 @@ Public API (class ``Model``): ``init(seed)``, ``param_specs`` /
 ``abstract_params`` / ``cache_specs`` (shapes only, nothing allocated),
 ``loss_fn`` (training forward with CE + MoE aux loss, under autograd),
 ``prefill`` (builds decode caches), ``decode_step`` (one token),
-``init_cache``. Prefill and decode run under ``torch.inference_mode()``.
+``init_cache``. Prefill and decode run under ``torch.inference_mode()``;
+a model with ``mamba2`` blocks trains only, and refuses both.
 
 On a ``DeviceMesh`` (``mesh=``) the parameters are DTensors placed by the
 sharding rules, the activations are constrained where the JAX package
@@ -20,7 +21,8 @@ constrains them (``ShardCtx``), plain tensors made inside the forward
 (positions, masks, counters) count as replicated, and each kernel runs on
 its local shards through ``ShardCtx.local_call``. ``cfg.remat`` checkpoints each period of
 blocks while gradients are recorded (``torch.utils.checkpoint``), as the
-JAX package checkpoints each scanned period; the numbers stay the same.
+JAX package checkpoints each scanned period, or each block with
+``cfg.remat_unit == "layer"``; the numbers stay the same.
 """
 
 from __future__ import annotations
@@ -226,6 +228,8 @@ class Model(ParamModule):
             x = self._rows(self.ctx.constrain(self.embed.to(cdt), ("vocab", None)), inputs)
         if cfg.embed_scale:
             x = x * self.embed_mult
+        if cfg.embedding_multiplier != 1.0:
+            x = x * cfg.embedding_multiplier
         return self.ctx.constrain(x, ("batch", "seq", "embed"))
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
@@ -236,6 +240,8 @@ class Model(ParamModule):
             logits = x @ ctx.constrain(self.embed.to(self.compute_dtype), ("vocab", None)).T
         else:
             logits = x @ ctx.constrain(self.head.to(self.compute_dtype), (None, "vocab"))
+        if cfg.logits_scaling != 1.0:
+            logits = logits / cfg.logits_scaling
         if cfg.logit_softcap > 0:
             logits = softcap(logits, cfg.logit_softcap)
         return ctx.constrain(logits, ("batch", "seq", "vocab"))
@@ -283,19 +289,21 @@ class Model(ParamModule):
 
     def _backbone(self, x: torch.Tensor, positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B,S,D) → (x after every block, total aux loss float32). Each
-        full period of ``cfg.block_pattern`` is checkpointed under
-        ``cfg.remat`` while gradients are recorded; the leftover layers are
-        not (as in the JAX package, where they sit outside the scan)."""
+        full period of ``cfg.block_pattern`` — or each of its layers, with
+        ``cfg.remat_unit == "layer"`` — is checkpointed under ``cfg.remat``
+        while gradients are recorded; the leftover layers are not (as in the
+        JAX package, where they sit outside the scan)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         period = cfg.pattern_period
+        unit = 1 if cfg.remat_unit == "layer" else period
         remat = cfg.remat and torch.is_grad_enabled()
-        for first in range(0, cfg.num_periods * period, period):
+        for first in range(0, cfg.num_periods * period, unit):
             if remat:
-                x, aux = checkpoint(self._layers, first, first + period, x, aux, positions,
+                x, aux = checkpoint(self._layers, first, first + unit, x, aux, positions,
                                     use_reentrant=False)
             else:
-                x, aux = self._layers(first, first + period, x, aux, positions)
+                x, aux = self._layers(first, first + unit, x, aux, positions)
         return self._layers(cfg.num_periods * period, cfg.num_layers, x, aux, positions)
 
     def _label_logits(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -324,9 +332,16 @@ class Model(ParamModule):
             return ce + aux, {"ce": ce, "aux": aux}
 
     # --------------------------------------------------------------- decode
+    def _check_servable(self) -> None:
+        if "mamba2" in self.kinds:
+            raise NotImplementedError(
+                f"{self.cfg.name}: serving a model with mamba2 blocks (prefill, decode, "
+                "caches) is not implemented; the Mamba-2 mixer trains only (loss_fn)")
+
     def init_cache(self, batch: int, cache_len: int) -> List[Any]:
         """Zeroed decode caches, one entry a layer. On a mesh each rank
         allocates only its shard of each (placed by ``CACHE_AXES``)."""
+        self._check_servable()
         if not self.ctx.active:
             return [B.init_block_cache(self.cfg, kind, batch, cache_len, self.compute_dtype,
                                        self.device) for kind in self.kinds]
@@ -374,6 +389,7 @@ class Model(ParamModule):
         """Run the full-sequence forward, building decode caches.
 
         Returns (last-position logits (B,V) float32, caches)."""
+        self._check_servable()
         cfg = self.cfg
         with self._no_grad(), self.mesh_scope():
             inputs = self._inputs(inputs)
@@ -427,6 +443,7 @@ class Model(ParamModule):
         """One decode step. inputs: (B,) token ids or (B,1,D) embeddings;
         t: absolute position. Returns (logits (B,V) float32, cache); the
         caches are updated in place and the same list is returned."""
+        self._check_servable()
         cfg = self.cfg
         t = int(t)
         with self._no_grad(), self.mesh_scope():
@@ -439,6 +456,8 @@ class Model(ParamModule):
                 x = self._rows(self.embed.to(self.compute_dtype), inputs[:, None])
             if cfg.embed_scale:
                 x = x * self.embed_mult
+            if cfg.embedding_multiplier != 1.0:
+                x = x * cfg.embedding_multiplier
             x = self.ctx.constrain(x, ("batch", None, "embed"))
             for i, (p, kind) in enumerate(zip(self.blocks, self.kinds)):
                 x, cache[i] = B.block_decode(x, p, cfg, kind, cache[i], t, ctx=self.ctx)

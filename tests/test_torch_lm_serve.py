@@ -45,10 +45,14 @@ from repro_torch.configs import get_config, list_archs, tiny
 from repro_torch.models import build_model
 from repro_torch.models.common import rms_norm
 from repro_torch.training import greedy_generate
+from _twin_config import PORT_ONLY_ARCHS, reference_fields
 
 torch.backends.cuda.matmul.allow_tf32 = False
 
-ARCHS = list_archs()
+#: the port's archs with a twin in the JAX package (granite-4.0-h-small,
+#: the port's own, trains only and is held against its plain reference in
+#: ``test_torch_granite_hybrid.py``)
+ARCHS = j_list_archs()
 SERVED = ARCHS
 IMPLS = [("kernel", "pallas"), ("torch", "xla")]
 B, S, STEPS = 2, 12, 8
@@ -91,11 +95,12 @@ def _leaves(tree, prefix=""):
 @pytest.mark.parametrize("form", ["full", "tiny"])
 @pytest.mark.parametrize("arch", j_list_archs())
 def test_configs_equal_field_for_field(arch, form):
-    assert list_archs() == j_list_archs()
+    assert sorted(set(list_archs()) - set(j_list_archs())) == PORT_ONLY_ARCHS
+    assert set(j_list_archs()) <= set(list_archs())
     j_cfg, cfg = j_get_config(arch), get_config(arch)
     if form == "tiny":
         j_cfg, cfg = j_tiny(j_cfg), tiny(cfg)
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(j_cfg)
+    assert reference_fields(cfg) == dataclasses.asdict(j_cfg)
     assert cfg.layer_kinds() == j_cfg.layer_kinds()
     assert (cfg.num_periods, cfg.num_leftover) == (j_cfg.num_periods, j_cfg.num_leftover)
 

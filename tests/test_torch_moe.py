@@ -49,12 +49,12 @@ def _cfgs(arch, **moe):
     return j_cfg, cfg
 
 
-def _params(j_cfg, seed=0):
+def _params(j_cfg, cfg, seed=0):
     """The JAX package's MoE parameters (numpy) and the port's module
-    holding the same values."""
+    (declared from the port's config) holding the same values."""
     b = Builder("init", jax.random.PRNGKey(seed), ShardingRules(), None, jnp.float32)
     jp = jax.tree.map(np.asarray, j_mlp.moe_params(b.scope("moe"), j_cfg))
-    p = t_mlp.moe_params(j_cfg)
+    p = t_mlp.moe_params(cfg)
     p.to_empty(device="cpu")
     with torch.no_grad():
         for name, t in p.named_parameters():
@@ -85,7 +85,7 @@ def _jax_route(x, router, k, capacity):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_routing_equals_jax(arch, case):
     j_cfg, cfg = _cfgs(arch, capacity_factor=0.5 if case == "overflow" else 1.25)
-    jp, _ = _params(j_cfg)
+    jp, _ = _params(j_cfg, cfg)
     t, k, e = 48, cfg.moe.top_k, cfg.moe.num_experts
     x = _x((t, cfg.d_model))
     router = np.array(jp["router"])
@@ -121,7 +121,7 @@ def test_moe_fwd_matches_jax(arch, variant, local):
     j_cfg, cfg = _cfgs(arch, **moe)
     if variant == "gelu":
         j_cfg, cfg = dataclasses.replace(j_cfg, mlp="gelu"), dataclasses.replace(cfg, mlp="gelu")
-    jp, p = _params(j_cfg)
+    jp, p = _params(j_cfg, cfg)
     x = _x((2, 12, cfg.d_model))
     (j_out, j_aux), (out, aux) = _forwards(j_cfg, cfg, jp, p, x, local)
     assert out.shape == j_out.shape == x.shape
@@ -134,7 +134,7 @@ def test_moe_fwd_matches_jax(arch, variant, local):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_moe_gradients_match_jax(arch, variant):
     j_cfg, cfg = _cfgs(arch, capacity_factor=0.5 if variant == "overflow" else 1.25)
-    jp, p = _params(j_cfg)
+    jp, p = _params(j_cfg, cfg)
     x = _x((2, 12, cfg.d_model))
     cot = _x(x.shape, seed=7)
 
@@ -161,7 +161,7 @@ def test_local_dispatch_is_global_without_a_mesh():
     both dispatches give the same numbers bit for bit."""
     assert t_mlp._batch_ways() == 1
     j_cfg, cfg = _cfgs("granite-moe-1b-a400m", capacity_factor=0.5)
-    _, p = _params(j_cfg)
+    _, p = _params(j_cfg, cfg)
     x = torch.from_numpy(_x((3, 8, cfg.d_model)))
     a, a_aux = t_mlp.moe_fwd(x, p, cfg)
     b, b_aux = t_mlp._moe_fwd_local(x, p, cfg)

@@ -29,12 +29,13 @@ from jax.sharding import PartitionSpec as JSpec
 
 from repro.configs import SHAPES as J_SHAPES
 from repro.configs import get_config as j_get_config
+from repro.configs import list_archs as j_list_archs
 from repro.distributed.sharding import ShardingRules as JRules
 from repro.distributed.sharding import logical_to_spec as j_logical_to_spec
 from repro.launch import roofline as j_roofline
 from repro.models import build_model as j_build_model
 from repro_torch import convert
-from repro_torch.configs import SHAPES, get_config, list_archs
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.distributed import (
     DEFAULT_RULES,
     PartitionSpec,
@@ -139,7 +140,7 @@ def _jax_leaf(tree, path):
 
 @pytest.mark.parametrize("rules_name", list(RULES))
 @pytest.mark.parametrize("mesh_name", list(MESHES))
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", j_list_archs())
 def test_param_specs_match_jax(arch, mesh_name, rules_name):
     mesh = MESHES[mesh_name]
     j_model = j_build_model(j_get_config(arch), JRules(**RULES[rules_name]), _abstract(mesh))
@@ -190,7 +191,7 @@ def test_param_specs_without_mesh_are_empty():
 # ---------------------------------------------------------------- cache specs
 @pytest.mark.parametrize("cache_seq", [None, "model"])
 @pytest.mark.parametrize("shape_name", ["decode_32k", "long_500k"])
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", j_list_archs())
 def test_cache_specs_match_jax(arch, shape_name, cache_seq):
     mesh = MESHES["16x16"]
     shape = SHAPES[shape_name]
@@ -211,7 +212,7 @@ def test_cache_specs_match_jax(arch, shape_name, cache_seq):
 
 
 # ------------------------------------------------------------------ roofline
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", j_list_archs())
 def test_roofline_matches_jax(arch):
     cfg, j_cfg = get_config(arch), j_get_config(arch)
     assert roofline.count_params(cfg) == j_roofline.count_params(j_cfg)

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as j_get_config
+from repro.configs import list_archs as j_list_archs
 from repro.configs import tiny as j_tiny
 from repro.data import SyntheticLMDataset as JData
 from repro.models import build_model as j_build_model
@@ -42,7 +43,7 @@ from repro.training.checkpoint import load_checkpoint as j_load_checkpoint
 from repro.training.checkpoint import save_checkpoint as j_save_checkpoint
 from repro.training.train_step import init_train_state as j_init_train_state
 from repro_torch import convert
-from repro_torch.configs import get_config, list_archs, tiny
+from repro_torch.configs import get_config, tiny
 from repro_torch.data import SyntheticLMDataset
 from repro_torch.models import build_model
 from repro_torch.training import (
@@ -210,7 +211,7 @@ def _check_step(cfg, j_out, t_out):
     assert int(t_state.opt["step"]) == int(j_state.opt["step"]) == 1
 
 
-@pytest.mark.parametrize("arch", list_archs())
+@pytest.mark.parametrize("arch", j_list_archs())
 def test_loss_and_train_step_match_reference(arch):
     cfg, jmodel, j_state, model, state = _pair(arch)
     batch = _batch(cfg)
