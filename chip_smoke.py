@@ -93,7 +93,13 @@ of the JAX package. Phases:
    ``rglru_scan`` against their plain versions at the serving shapes (and
    the JAX package's kernel sweep; bf16 attention also at each (G, Dh,
    window) of the registry's attention archs), with SDPA timed as the
-   yardstick; then
+   yardstick, and training's flash-attention pair — the forward's O and
+   row LSE against the plain forward, the backward's three kernels against
+   the plain backward (gradients by the gap of norms), and the pair's
+   forward and backward timed beside the composition training ran before
+   it — at granite-moe-1b-a400m's two microbatches, granite-4.0-h-small's
+   attention, recurrentgemma-9b's local attention (Dh 256) and a ragged,
+   windowed, soft-capped shape; then
    four 3000-token requests through ``greedy_generate`` for 16 tokens with
    the kernels (12 ``flash_attention`` and 26 ``rglru_scan`` launches per
    prefill); prefill, decode and weight-cast times; decode after prefill
@@ -165,7 +171,9 @@ case (with the rate of the resource that bounds it and its share of the
 bound) and each phase's wall time, then a
 JSON line of per-kernel numbers (``launches`` from the kernel's own path,
 ``s5_launches`` from each path of phase 8, ``large_n_launches`` from each
-of phase 9, ``train_launches`` from (m)'s serving run and (n)'s job,
+of phase 9, ``train_launches`` from (m)'s serving run, its training steps
+(the backward kernels' own path: the flash-attention pair must launch) and
+(n)'s job,
 ``mesh_launches`` from phase 11 (o)'s serving run), then
 as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
@@ -211,6 +219,11 @@ REPLACES = {
     # (src/repro/core/gp/gp.py:76, its masked gram)
     "matern52_operand": "src/repro/kernels/matern52/kernel.py:148",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:102",
+    # training's backward: XLA's fusion of the JAX model's attention
+    # (src/repro/models/attention.py), no Pallas kernel
+    "flash_attention_bwd_dot": "none (XLA's fusion of src/repro/models/attention.py)",
+    "flash_attention_bwd_dkdv": "none (XLA's fusion of src/repro/models/attention.py)",
+    "flash_attention_bwd_dq": "none (XLA's fusion of src/repro/models/attention.py)",
     "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:55",
     "mamba_scan": "src/repro/kernels/mamba_scan/kernel.py:63",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:75",
@@ -225,6 +238,9 @@ SOURCES = {
     "matern52_cross": "src/repro_torch/kernels/csrc/matern52.cu",
     "matern52_operand": "src/repro_torch/kernels/csrc/matern52.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_bwd_dot": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkdv": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "rglru_scan": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -234,6 +250,8 @@ SOURCES = {
 PATH_OF = {"acq_score": "main", "acq_score_multi": "multi",
            "matern52_gram": "kb", "matern52_cross": "main", "matern52_operand": "main",
            "flash_attention": "serve", "rglru_scan": "serve",
+           "flash_attention_bwd_dot": "train", "flash_attention_bwd_dkdv": "train",
+           "flash_attention_bwd_dq": "train",
            "mamba_scan": "mamba", "decode_attention": "decode_check",
            "slice_chain": "main"}
 
@@ -852,6 +870,131 @@ def serve_phase(torch, np, K, check, peaks, dev) -> tuple:
               nbytes, flops, main_shape=main, library=library)
         del q, k, v, library
 
+    # training's flash-attention pair at granite-moe-1b-a400m's train16k and
+    # train32k microbatches (8 / 16 x 1024, 16/8 heads of 64),
+    # granite-4.0-h-small's attention (1 x 4096, 32/8 heads of 128, scale
+    # 1/128), recurrentgemma-9b's local attention (1 x 4096, 16/1 heads of
+    # 256, window 2048) and a ragged, windowed, soft-capped case:
+    # * the forward with the row LSE against the plain forward: O per
+    #   element as above, the LSE to 5e-5 absolute (f32 sums in another
+    #   order, ex2.approx);
+    # * the backward's three kernels against the plain backward, f32 on the
+    #   same bf16 inputs, from the plain forward's LSE and the kernel's O
+    #   (which D reads): D to 1e-5 of its norm; dK, dV and dQ to 1e-2 of
+    #   their norms, since P and dS enter their MMAs as bf16 and the outputs
+    #   are bf16 (tests/test_torch_flash_train.py holds them alike);
+    # * the pair's forward and backward through autograd beside the
+    #   composition training ran before it (``_attend`` with the route
+    #   turned off), timed only.
+    # Bounds: the forward 4·Dh FLOPs a live pair; D reads o and do once and
+    # writes D (bytes); the gradient needs 10·Dh a live pair (S, dP, dV, dK
+    # and dQ once), of which dK/dV does 8·Dh and dQ 2·Dh — dQ's second S and
+    # dP (4·Dh) are the design's overhead, outside its bound.
+    import types
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_fwd_lse
+    from repro_torch.kernels.flash_attention.plain import flash_attention_bwd_plain
+    from repro_torch.kernels.flash_attention.train import FlashAttentionTrain
+    from repro_torch.models import attention
+    from repro_torch.models.common import NO_MESH
+
+    bwd_lib = _build.library("flash_attention_bwd")
+    for b, s, hq, hkv, dh, window, cap, scale, main in (
+            (8, 1024, 16, 8, 64, 0, 0.0, 0.125, True),
+            (16, 1024, 16, 8, 64, 0, 0.0, 0.125, False),
+            (1, 4096, 32, 8, 128, 0, 0.0, 1 / 128, False),
+            (1, 4096, 16, 1, 256, 2048, 0.0, 0.0625, False),
+            (2, 300, 6, 2, 96, 100, 30.0, 96**-0.5, False)):
+        q, k, v, do = (randn(b, s, h, dh).bfloat16() for h in (hq, hkv, hkv, hq))
+        pairs = b * hq * band_pairs(s, window)
+        label = f"B={b} S={s} Hq={hq} Hkv={hkv} Dh={dh} window={window} softcap={cap}"
+        qkv_bytes = 2 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
+        def plain_fwd():
+            return flash_attention_plain(q, k, v, window, cap, scale, lse=True)
+
+        for i, part in enumerate(("O", "LSE")):
+            check("flash_attention", "bf16", f"{label} scale={scale:.6g} {part}",
+                  lambda i=i: flash_attention_fwd_lse(q, k, v, window, cap, scale)[i],
+                  lambda i=i: plain_fwd()[i], qkv_bytes + 4 * b * hq * s,
+                  {"bf16": 4 * dh * pairs}, main_shape=False,
+                  **({} if part == "O" else dict(tol=5e-5, measure="abs")))
+        o, lse = flash_attention_fwd_lse(q, k, v, window, cap, scale)
+        want_lse = plain_fwd()[1]
+
+        def plain_bwd():
+            return flash_attention_bwd_plain(*(x.float() for x in (q, k, v, o)), want_lse,
+                                             do.float(), window, cap, scale)
+        delta = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        sizes = (b, s, hq, hkv, dh, window, cap, scale)
+        ptr = {n: x.data_ptr() for n, x in dict(q=q, k=k, v=v, o=o, do=do, lse=lse,
+                                                 delta=delta, dq=dq, dk=dk, dv=dv).items()}
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def dot():
+            bwd_lib.flash_attention_bwd_dot_bf16(ptr["o"], ptr["do"], ptr["delta"], b, s, hq,
+                                                 dh, stream)
+            return delta
+
+        def dkdv(out):
+            bwd_lib.flash_attention_bwd_dkdv_bf16(
+                ptr["q"], ptr["k"], ptr["v"], ptr["do"], ptr["lse"], ptr["delta"], ptr["dk"],
+                ptr["dv"], *sizes, stream)
+            return out
+
+        def dqk():
+            bwd_lib.flash_attention_bwd_dq_bf16(
+                ptr["q"], ptr["k"], ptr["v"], ptr["do"], ptr["lse"], ptr["delta"], ptr["dq"],
+                *sizes, stream)
+            return dq
+
+        want_delta = (do.float() * o.float()).sum(-1).permute(0, 2, 1)
+        check("flash_attention_bwd_dot", "bf16", label, dot, lambda: want_delta,
+              4 * b * s * hq * dh + 4 * b * hq * s, {"f32": 2 * b * s * hq * dh},
+              main_shape=main, tol=1e-5, measure="norm")
+        dot()
+        dkdv_bytes = 2 * (3 * b * s * hq * dh + 4 * b * s * hkv * dh) + 8 * b * hq * s
+        for i, name, got in ((1, "dK", dk), (2, "dV", dv)):
+            check("flash_attention_bwd_dkdv", "bf16", f"{label} {name}",
+                  lambda got=got: dkdv(got), lambda i=i: plain_bwd()[i], dkdv_bytes,
+                  {"bf16": 8 * dh * pairs}, main_shape=main, tol=1e-2, measure="norm")
+        check("flash_attention_bwd_dq", "bf16", f"{label} dQ", dqk, lambda: plain_bwd()[0],
+              2 * (3 * b * s * hq * dh + 2 * b * s * hkv * dh) + 8 * b * hq * s,
+              {"bf16": 2 * dh * pairs}, main_shape=main, tol=1e-2, measure="norm")
+        del want_lse, delta, dq, dk, dv, o, lse
+        if cap == 0.0:
+            qg, kg, vg = (x.detach().requires_grad_(True) for x in (q, k, v))
+            cfg_t = types.SimpleNamespace(attn_scale=scale, attn_softcap=cap)
+            pos = torch.arange(s, device=dev)[None].expand(b, s)
+
+            def pair_step():
+                out = FlashAttentionTrain.apply(qg, kg, vg, window, cap, scale)
+                torch.autograd.grad(out, (qg, kg, vg), do)
+
+            def comp_fwd():
+                return attention._attend(qg, kg, vg, pos, cfg_t, window, "torch", 1024,
+                                         NO_MESH)
+
+            def comp_step():
+                torch.autograd.grad(comp_fwd(), (qg, kg, vg), do)
+
+            pair_ms = time_ms(torch, pair_step, reps=10)
+            route = attention._train_route
+            attention._train_route = lambda q: False  # the composition
+            try:
+                comp_ms = time_ms(torch, comp_fwd, reps=10)
+                comp_step_ms = time_ms(torch, comp_step, reps=10)
+            finally:
+                attention._train_route = route
+            print(f"flash_attention_train bf16 {label}: the pair forward + backward "
+                  f"{pair_ms:.5f} ms ({14 * dh * pairs / pair_ms / 1e9:.2f} TFLOP/s of the "
+                  f"4·Dh + 10·Dh a pair they need); the composition it replaced: forward "
+                  f"{comp_ms:.5f} ms, forward + backward {comp_step_ms:.5f} ms", flush=True)
+            del qg, kg, vg
+        del q, k, v, do
+        torch.cuda.empty_cache()
+
     # rglru_scan: the serving shape (B, S, d_inner), the JAX package's sweep
     # and its extreme-decay case. Bound: 12 bytes per element (a, g read, h
     # written) plus the last state, at the HBM rate.
@@ -1110,6 +1253,7 @@ def train_phase(np, torch, K, telemetry, card, checked_buckets, dev) -> dict:
     step = make_train_step(model, opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
     losses, norms, step_ms = [], [], []
     for i in range(TRAIN_STEPS):
         batch = ds.batch(i)
@@ -1124,6 +1268,12 @@ def train_phase(np, torch, K, telemetry, card, checked_buckets, dev) -> dict:
               f"aux {float(metrics['aux']):.6f}), grad_norm {norms[-1]:.6f}, lr "
               f"{float(metrics['lr']):.3e}, {step_ms[-1]:.3f} ms", flush=True)
     peak = torch.cuda.max_memory_allocated()
+    # two eager steps and the captured one launch; replays count nothing
+    step_launches = dict(K.LAUNCHES)
+    if not all(step_launches[n] > 0 for n in (
+            "flash_attention", "flash_attention_bwd_dot", "flash_attention_bwd_dkdv",
+            "flash_attention_bwd_dq")):
+        fail(f"train: the step did not run the flash-attention pair: {step_launches}")
     med = statistics.median(step_ms[2:])
     numbers = {"prefill_ms": serve_times["prefill_ms"], "step_ms": serve_times["step_ms"],
                "train_step_ms": med, "train_peak": peak}
@@ -1248,6 +1398,8 @@ def train_phase(np, torch, K, telemetry, card, checked_buckets, dev) -> dict:
         took = (t.end_time - t.start_time) if t.end_time is not None and t.start_time is not None else math.nan
         print(f"  trial {t.trial_id}: {t.state}, {len(t.curve)} evals, curve "
               f"{[round(v, 4) for v in t.curve]}, {took:.1f} s; {hp}", flush=True)
+        if t.error:
+            print("    " + t.error.strip().replace("\n", "\n    "), flush=True)
     if len(dec) and len(dec) == len(gp_ids):
         print(f"  GP decisions {len(dec)}: p50 {statistics.median(dec):.2f} ms, max "
               f"{dec[-1]:.2f} ms; launches {tune_launches}", flush=True)
@@ -1274,7 +1426,7 @@ def train_phase(np, torch, K, telemetry, card, checked_buckets, dev) -> dict:
           f"{tune_launches['slice_chain']} ({tune_launches['slice_chain'] / len(dec):.2f}), "
           f"matern52_operand {tune_launches['matern52_operand']}; rows {min(ns)}..{max(ns)}, "
           f"buckets {sorted(buckets)}; {wall:.1f} s", flush=True)
-    return {"serve": serve_launches, "tune": tune_launches}, numbers
+    return {"serve": serve_launches, "train": step_launches, "tune": tune_launches}, numbers
 
 
 def free_port() -> int:
@@ -2267,7 +2419,7 @@ def main() -> None:
     print(f"launch_floor_ms {floor_ms:.5f} (an empty kernel, <<<1, 1>>>)", flush=True)
 
     def check(kname, dt, label, kfn, pfn, nbytes, flops, main_shape, tol=None,
-              library=None):
+              library=None, measure=None):
         got = kfn()
         torch.cuda.synchronize()
         want = pfn()
@@ -2279,7 +2431,15 @@ def main() -> None:
         delta = (got.double() - want.double()).abs()
         err = float(delta.max())
         elem = TOL_ELEM.get((kname, dt)) if tol is None else None
-        if elem is not None:
+        if measure == "norm":  # the gap of norms, ||Δ|| / ||plain||
+            gap = float(torch.linalg.vector_norm(got.double() - want.double())
+                        / torch.linalg.vector_norm(want.double()))
+            ok = gap <= tol
+            tol_text = f"||Δ|| / ||plain|| {gap:.3e}, tol {tol:.0e}"
+        elif measure == "abs":
+            ok = err <= tol
+            tol_text = f"tol {tol:.0e} absolute"
+        elif elem is not None:
             rel, floor = elem
             limit = rel * want.double().abs() + floor
             worst = float((delta / limit).max())
@@ -3141,7 +3301,7 @@ def main() -> None:
 
     path_launches = {"main": main_launches, "multi": multi_launches, "kb": kb_launches,
                      "serve": serve_launches, "decode_check": decode_launches,
-                     "mamba": mamba_launches}
+                     "mamba": mamba_launches, "train": train_launches["train"]}
     line = {"kernels": []}
     for kname in K.KERNEL_NAMES:
         r = results.get(kname)

@@ -2,7 +2,8 @@
 
 Each kernel lives in a package of its own (``acq_score``, ``matern52``,
 ``slice_chain``, ``flash_attention``, ``rglru_scan``, ``mamba_scan``,
-``decode_attention``):
+``decode_attention``; ``flash_attention`` also holds training's pair, its
+forward with the row log-sum-exp and a backward in three kernels):
 
 * ``kernel.py`` — the wrapper. On a CPU tensor it runs the plain version; on
   a CUDA tensor it launches the kernel (built from ``csrc/`` at first use,
@@ -27,7 +28,8 @@ __all__ = ["LAUNCHES", "KERNEL_NAMES", "reset_launch_counts"]
 
 KERNEL_NAMES = (
     "acq_score", "acq_score_multi", "matern52_gram", "matern52_cross",
-    "matern52_operand", "flash_attention", "rglru_scan", "mamba_scan",
+    "matern52_operand", "flash_attention", "flash_attention_bwd_dot",
+    "flash_attention_bwd_dkdv", "flash_attention_bwd_dq", "rglru_scan", "mamba_scan",
     "decode_attention", "slice_chain",
 )
 

@@ -34,6 +34,7 @@ SOURCES = {
     "acq_score_multi": "acq_score_multi.cu",
     "matern52": "matern52.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
     "rglru_scan": "rglru_scan.cu",
     "mamba_scan": "mamba_scan.cu",
     "decode_attention": "decode_attention.cu",
@@ -141,8 +142,18 @@ _ARGTYPES = {
     # x, table, mask, out; S, n, d, warp; jitter; stream
     "matern52_operand": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
     + [ctypes.c_double, ctypes.c_void_p],
-    # q, k, v, out; B, S, Hq, Hkv, Dh, window; softcap; scale; stream
-    "flash_attention": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    # q, k, v, out, lse (or null); B, S, Hq, Hkv, Dh, window; softcap;
+    # scale; stream
+    "flash_attention": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    # o, dout, delta; B, S, Hq, Dh; stream
+    "flash_attention_bwd_dot": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    # q, k, v, dout, lse, delta, dk, dv; B, S, Hq, Hkv, Dh, window; softcap;
+    # scale; stream
+    "flash_attention_bwd_dkdv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, dout, lse, delta, dq; the same sizes, softcap, scale, stream
+    "flash_attention_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
     # a, g, h, h_last; B, S, di; stream
     "rglru_scan": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p],

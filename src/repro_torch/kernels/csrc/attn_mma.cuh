@@ -32,6 +32,7 @@ namespace attn {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Row stride, in bf16 values, of a staged tile of padded width DP.
 __host__ __device__ constexpr int tile_ld(int dp) { return dp + 8; }

@@ -1,8 +1,9 @@
 // Hopper's warpgroup MMA (wgmma), tensor memory accelerator (TMA) and
-// mbarriers, for the bf16 body of flash_attention.cu: shared-memory matrix
-// descriptors for the no-swizzle ("interleave") layout, the fences and
-// group waits around an asynchronous wgmma, the instruction shapes the
-// kernel issues, a TMA box copy and the mbarrier it completes on.
+// mbarriers, for the bf16 bodies of flash_attention.cu and
+// flash_attention_bwd.cu: shared-memory matrix descriptors for the
+// no-swizzle ("interleave") layout, the fences and group waits around an
+// asynchronous wgmma, the instruction shapes the kernels issue, a TMA box
+// copy and the mbarrier it completes on.
 //
 // The no-swizzle layout stores a tile as 8×8 "core matrices" of 16-bit
 // values, each 8 rows of 16 contiguous bytes (128 bytes). A descriptor
@@ -17,6 +18,8 @@
 
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "attn_mma.cuh"
@@ -222,6 +225,51 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const unsigned (&a)[4]
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
         "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// ------------------------------------------------------------------ host
+
+constexpr int kBoxRows = 64;  // rows of one TMA box: one m64 wgmma tile
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime (no
+// link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// (B, S, H, Dh) bf16 viewed as (8, S, Dh/8, H, B): boxes of 64 rows × the
+// whole head, padded with zero chunks up to DP/8. A box lands as
+// [chunk][row][16 bytes]: chunk c of row r at c·64·16 + r·16.
+template <int DP>
+int head_map(CUtensorMap* map, const void* base, int B, int S, int H, int dh) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[5] = {8, (cuuint64_t)S, (cuuint64_t)(dh / 8), (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {(cuuint64_t)H * dh * 2, 16, (cuuint64_t)dh * 2,
+                                 (cuuint64_t)S * H * dh * 2};
+  const cuuint32_t box[5] = {8, kBoxRows, DP / 8, 1, 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;  // a map the driver refused
 }
 
 }  // namespace attn

@@ -7,10 +7,13 @@
 //
 // What it computes, in the model's layout: q (B, S, Hq, Dh) against k, v
 // (B, S, Hkv, Dh), out (B, S, Hq, Dh) in the inputs' type (bf16 or f32).
-// Scores s = (q·k)·Dh^-1/2, optionally soft-capped (cap·tanh(s/cap)), masked
-// causally (k ≤ q) and, with window > 0, to the band q − k < window; the
-// softmax is taken online in f32 (running max m, running sum l, f32
-// accumulator) and the output is acc / l. KV head of query head h is
+// Scores s = (q·k)·scale (Dh^-1/2, or a model's own), optionally
+// soft-capped (cap·tanh(s/cap)), masked causally (k ≤ q) and, with
+// window > 0, to the band q − k < window; the softmax is taken online in
+// f32 (running max m, running sum l, f32 accumulator) and the output is
+// acc / l; the bf16 body can also write the row log-sum-exp m + log l (f32,
+// (B, Hq, S)), the one statistic training's backward needs
+// (flash_attention_bwd.cu). KV head of query head h is
 // h / (Hq / Hkv): KV rows are addressed, never expanded. Both bodies visit
 // only the KV tiles that meet a block's band — tiles wholly outside the
 // causal/window band are skipped, as the TPU kernel skips them
@@ -291,7 +294,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 // ------------------------------------------------------------- bf16 body
 constexpr int kWgThreads = 256;  // two warpgroups
 constexpr int kWgBQ = 128;       // query rows per block: 64 a warpgroup
-constexpr int kWgBK = 64;        // keys per staged tile
+constexpr int kWgBK = attn::kBoxRows;  // keys per staged tile
 
 template <int DP>
 constexpr size_t wg_smem_bytes() {
@@ -302,8 +305,9 @@ constexpr size_t wg_smem_bytes() {
 template <int DP>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
-            const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out, int S,
-            int Hq, int Hkv, int dh, int window, float softcap, float scale) {
+            const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+            float* __restrict__ lse, int S, int Hq, int Hkv, int dh, int window, float softcap,
+            float scale) {
   using bf16 = __nv_bfloat16;
   // A box lands as [chunk][row][16 bytes]: chunk c of row r at c·CH + r·16.
   // Q, K (K-major): LBO = CH (next 8 of the head), SBO = 128 (next 8 rows);
@@ -466,8 +470,12 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qpos = row0 + r * 8;
-    const float inv = 1.f / fmaxf(attn::quad_sum(l[r]), 1e-30f);
+    const float sum = attn::quad_sum(l[r]);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
     if (qpos >= S) continue;
+    if (lse != nullptr && (lane & 3) == 0) {
+      lse[(size_t)blockIdx.y * S + qpos] = (m[r] + log2f(sum)) * attn::kLn2;
+    }
     bf16* orow = out + ((size_t)(b * S + qpos) * Hq + h) * dh;
 #pragma unroll
     for (int n = 0; n < NO / 4; ++n) {
@@ -480,53 +488,14 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CU
   }
 }
 
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// (B, S, H, Dh) bf16 viewed as (8, S, Dh/8, H, B): boxes of 64 rows × the
-// whole head, padded with zero chunks up to DP/8.
 template <int DP>
-int head_map(CUtensorMap* map, const void* base, int B, int S, int H, int dh) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[5] = {8, (cuuint64_t)S, (cuuint64_t)(dh / 8), (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[4] = {(cuuint64_t)H * dh * 2, 16, (cuuint64_t)dh * 2,
-                                 (cuuint64_t)S * H * dh * 2};
-  const cuuint32_t box[5] = {8, kWgBK, DP / 8, 1, 1};
-  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;  // a map the driver refused
-}
-
-template <int DP>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S, int Hq,
-                 int Hkv, int dh, int window, float softcap, float scale, void* stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                 int S, int Hq, int Hkv, int dh, int window, float softcap, float scale,
+                 void* stream) {
   CUtensorMap qmap, kmap, vmap;
-  int err = head_map<DP>(&qmap, q, B, S, Hq, dh);
-  if (err == 0) err = head_map<DP>(&kmap, k, B, S, Hkv, dh);
-  if (err == 0) err = head_map<DP>(&vmap, v, B, S, Hkv, dh);
+  int err = attn::head_map<DP>(&qmap, q, B, S, Hq, dh);
+  if (err == 0) err = attn::head_map<DP>(&kmap, k, B, S, Hkv, dh);
+  if (err == 0) err = attn::head_map<DP>(&vmap, v, B, S, Hkv, dh);
   if (err != 0) return err;
   const size_t smem = wg_smem_bytes<DP>();
   const cudaError_t e = cudaFuncSetAttribute(
@@ -534,7 +503,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + kWgBQ - 1) / kWgBQ, B * Hq);
   flash_wgmma<DP><<<grid, kWgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), S, Hq, Hkv, dh, window, softcap, scale);
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, S, Hq, Hkv, dh, window, softcap,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -542,20 +512,24 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, 
 
 extern "C" {
 
-int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
+int flash_attention_f32(const void* q, const void* k, const void* v, void* out, void* lse,
                         int B, int S, int Hq, int Hkv, int dh, int window,
                         float softcap, float scale, void* stream) {
+  if (lse != nullptr) return (int)cudaErrorInvalidValue;  // the LSE is the bf16 body's
   return dispatch<float>(q, k, v, out, B, S, Hq, Hkv, dh, window, softcap, scale, stream);
 }
 
 // The tensor-core body only: a head dim it does not take is refused, never
-// sent to the f32 body.
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
+// sent to the f32 body. lse: null (prefill) or (B, Hq, S) f32, the row
+// log-sum-exp of the scaled (soft-capped) scores, which training's backward
+// (flash_attention_bwd.cu) rebuilds P from.
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
                          int B, int S, int Hq, int Hkv, int dh, int window,
                          float softcap, float scale, void* stream) {
   if (dh < 8 || dh % 8 || dh > 256) return (int)cudaErrorInvalidValue;
 #define FLASH_WGMMA(DP) \
-  launch_wgmma<DP>(q, k, v, out, B, S, Hq, Hkv, dh, window, softcap, scale, stream)
+  launch_wgmma<DP>(q, k, v, out, static_cast<float*>(lse), B, S, Hq, Hkv, dh, window, softcap, \
+                   scale, stream)
   if (dh <= 64) return FLASH_WGMMA(64);
   if (dh <= 80) return FLASH_WGMMA(80);
   if (dh <= 96) return FLASH_WGMMA(96);

@@ -17,6 +17,24 @@ Implementations of the prefill forward:
     ``impl="xla"``: queries in chunks of ``q_chunk`` against all keys, with
     probabilities cast to the compute dtype before P·V.
 
+Training (``impl="torch"``, the JAX package's XLA route, which fuses the
+composition) takes the hand-written flash-attention pair instead where a
+call shows it can: gradients recorded (grad mode on, q requiring one) and
+bf16 tensors on the card. The pair takes every head dim the forward kernel
+takes (a multiple of 8, at most 256) and raises on any other, as the kernel
+route does. The pair (``kernels/flash_attention/train.py``) is the
+forward kernel with the row log-sum-exp and a deterministic backward in
+three kernels; scores and softmax stay in f32 registers, and nothing of
+size S² reaches device memory. Like the kernel route it takes positions
+0…S−1, which ``Model.loss_fn`` passes. Everything else keeps the
+composition: prefill and serving on ``impl="torch"``, decode, the CPU, f32
+compute, any call without a gradient, and fake tensors (the dry-run traces
+the composition, whose operations it can count, and no kernel runs on a
+tensor without storage). The counters
+``attn.train.kernel`` and ``attn.train.plain`` count the grad-recording
+calls the pair took and left, while telemetry records and no graph is
+being captured.
+
 Decode is the plain composition in both (the JAX model uses no kernel
 there either).
 
@@ -36,9 +54,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.core import telemetry
 from repro_torch.distributed.sharding import PartitionSpec
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention.train import FlashAttentionTrain
 from repro_torch.models.common import NO_MESH, ParamModule, ShardCtx, apply_rope, rms_norm, rope_freqs
 
 __all__ = [
@@ -166,11 +187,21 @@ def _local_kv(q, k, v, hq: int, hkv: int, q_entry, ctx: ShardCtx):
     return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
 
 
+def _train_route(q: torch.Tensor) -> bool:
+    """Whether a grad-recording call runs the flash-attention pair: bf16 on
+    the card, and not a fake tensor; counted while telemetry records and no
+    graph is being captured."""
+    take = q.is_cuda and q.dtype == torch.bfloat16 and not is_fake(q)
+    if telemetry.recording(q.device):
+        telemetry.count("attn.train.kernel" if take else "attn.train.plain")
+    return take
+
+
 def _attend(q, k, v, positions, cfg, window: int, impl: str, q_chunk: int,
             ctx: ShardCtx) -> torch.Tensor:
     """Causal (windowed) attention of (B,S,H,Dh) q/k/v: the flash-attention
-    kernel or the plain composition, on local shards under a mesh (see the
-    module docstring)."""
+    kernel, training's flash-attention pair or the plain composition, on
+    local shards under a mesh (see the module docstring)."""
     if impl not in ("kernel", "torch"):
         raise ValueError(f"unknown attention impl {impl!r} (kernel or torch)")
     q_axes, kv_axes = ("batch", None, "heads", None), ("batch", None, "kv_heads", None)
@@ -186,6 +217,10 @@ def _attend(q, k, v, positions, cfg, window: int, impl: str, q_chunk: int,
         if impl == "kernel":
             return flash_attention_kernel(ql.contiguous(), kl.contiguous(), vl.contiguous(),
                                           window, cfg.attn_softcap)
+        if torch.is_grad_enabled() and ql.requires_grad and _train_route(ql):
+            return FlashAttentionTrain.apply(ql.contiguous(), kl.contiguous(), vl.contiguous(),
+                                             window, float(cfg.attn_softcap),
+                                             cfg.attn_scale or ql.shape[-1] ** -0.5)
         chunks = []
         for q_i, pos_i in zip(ql.split(q_chunk, dim=1), pos.split(q_chunk, dim=1)):
             mask = pos_i[:, :, None] >= pos[:, None, :]  # causal

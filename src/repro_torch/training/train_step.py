@@ -12,10 +12,14 @@ metrics)`` as the JAX package's does, run eagerly:
 
 The state's parameters are the model's own tensors (``TrainState.params``
 is ``dict(model.named_parameters())``, with gradients on), so a step
-updates the model. Training runs the plain PyTorch composition
-(``impl="torch"``), as the JAX package trains on its XLA route: the CUDA
-kernels, like the JAX package's Pallas kernels, have no backward, and a
-model with ``impl="kernel"`` is refused.
+updates the model. Training runs ``impl="torch"``, as the JAX package
+trains on its XLA route, which fuses attention: on the card the port's
+counterpart of that fusion, the flash-attention pair (a forward and a
+backward kernel), takes the grad-recording bf16 attention calls
+(``models/attention.py`` says which). The other CUDA kernels
+(``mamba_scan``, ``rglru_scan``, decode attention), like the JAX package's
+Pallas kernels, have no backward, and a model with ``impl="kernel"`` is
+refused.
 
 The JAX package compiles the step once (``jax.jit``); eager PyTorch pays
 the host a launch for each of the step's ~3·10⁴ operations. So on the card

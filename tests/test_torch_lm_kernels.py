@@ -9,12 +9,17 @@ numpy-seeded inputs, at the cases and tolerances of ``tests/test_kernels.py``:
 * the rounding of the bf16 tensor-core body of ``flash_attention``, which
   runs only on the card: an emulation of its tile order and its two bf16
   parts of P, held against the Pallas kernel on bf16 inputs to the per-
-  element bound the card holds it to (|Δ| ≤ 2^-7·|ref| + 2^-9).
+  element bound the card holds it to (|Δ| ≤ 2^-7·|ref| + 2^-9);
+* training's flash-attention pair on the CPU (the forward with the LSE,
+  the plain backward's explicit formulas, ``FlashAttentionTrain``): the
+  output and the q, k, v gradients against ``jax.vjp`` of the JAX
+  package's oracle, float32 to 1e-5.
 
 The wrappers never fall back from a CUDA tensor (with no card they raise),
 refuse inputs that require a gradient, and launch nothing on the CPU.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +32,10 @@ from repro.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch import kernels as K
 from repro_torch.kernels.flash_attention import kernel as flash_kernel_mod
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.flash_attention.plain import (
+    flash_attention_bwd_plain, flash_attention_plain,
+)
+from repro_torch.kernels.flash_attention.train import FlashAttentionTrain
 from repro_torch.kernels.rglru_scan import kernel as rglru_kernel_mod
 from repro_torch.kernels.rglru_scan.kernel import rglru_scan_kernel
 
@@ -184,6 +193,43 @@ def test_flash_bf16_split_p_is_closer_than_one_rounding():
     once = worst_of_limit(flash_tiles_emulated(tq, tk, tv, 9, split_p=False).float().numpy(),
                           want)
     assert split <= 1.0 and split < once
+
+
+@pytest.mark.parametrize("scale", [None, 1 / 128], ids=["dh^-1/2", "1/128"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("window", [0, 32])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_train_gradients_match_the_oracle(dh, g, window, softcap, scale):
+    """Training's pair on the CPU against ``jax.vjp`` of the JAX package's
+    oracle on the same q, k, v and upstream gradient, float32 to 1e-5: the
+    forward with the LSE and the plain backward called directly, and
+    ``FlashAttentionTrain`` through autograd. The oracle scales the scores
+    by Dh^-1/2; another scale enters it as q·(scale·Dh^1/2)."""
+    q, k, v = _qkv(2, 70, 2 * g, 2, dh, seed=dh + 7 * g + window)
+    do = np.random.default_rng(dh + g).standard_normal(q.shape).astype(np.float32)
+    sc = dh**-0.5 if scale is None else scale
+    c = sc * dh**0.5
+
+    def oracle(q, k, v):
+        return _tr(flash_attention_ref(_tr(q * c), _tr(k), _tr(v), window=window,
+                                       softcap=softcap))
+
+    want_out, vjp = jax.vjp(oracle, *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = map(torch.as_tensor, (q, k, v, do))
+    out, lse = flash_attention_plain(tq, tk, tv, window, softcap, sc, lse=True)
+    direct = flash_attention_bwd_plain(tq, tk, tv, out, lse, tdo, window, softcap, sc)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    pair_out = FlashAttentionTrain.apply(*leaves, window, softcap, sc)
+    pair = torch.autograd.grad(pair_out, leaves, tdo)
+    for got in (out, pair_out.detach()):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want_out), rtol=1e-5, atol=1e-5)
+    for grads in (direct, pair):
+        for got, w in zip(grads, want):
+            assert got.dtype == torch.float32 and got.shape == w.shape
+            np.testing.assert_allclose(got.numpy(), w, rtol=1e-5, atol=1e-5)
+    assert K.LAUNCHES == {name: 0 for name in K.KERNEL_NAMES}
 
 
 RGLRU_CASES = [(2, 64, 128), (1, 500, 256), (2, 129, 300)]
