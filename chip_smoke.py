@@ -2773,8 +2773,8 @@ def main() -> None:
         rows = fold_engine._pending_rows(post, xb, live)
         a, ya, b, yb = post, y0, post, y0
         for r in range(R):
-            a, ya = fold_engine._fantasy_append(a, ya, xb[r], rows[..., r, :])
-            b, yb = fold_engine._fantasy_append(b, yb, xb[r])
+            a, (ya,), _ = fold_engine._fantasy_append(a, [ya], xb[r], rows[..., r, :])
+            b, (yb,), _ = fold_engine._fantasy_append(b, [yb], xb[r])
         errs = {key: float((getattr(a, key).double() - getattr(b, key).double()).abs().max())
                 for key in ("chol", "chol_inv", "x_train", "mask", "alpha")}
         print(f"pending fold n={n} live={live} +{R} (bucket {a.x_train.shape[0]}): rows "

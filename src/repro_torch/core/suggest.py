@@ -399,7 +399,7 @@ class BOSuggester:
     ``state_dict()``/``load_state_dict()`` capture everything *drawn since
     construction*; a JAX ``BOSuggester.state_dict()`` loads unchanged.
     Factors are never part of the state: they rebuild by an RNG-free replay
-    of the incremental construction (see ``_posterior_for``).
+    of the incremental construction (see ``_advance_factors``).
     """
 
     def __init__(
@@ -606,7 +606,6 @@ class BOSuggester:
         self, store: ObservationStore, k: int, pend_np: np.ndarray
     ) -> List[Dict[str, Any]]:
         cfg = self.config
-        space = self.space
         n = store.num_observations
         picks: List[np.ndarray] = []
         out: List[Dict[str, Any]] = []
@@ -650,60 +649,93 @@ class BOSuggester:
                 return self._decide_cost(store, k, pend_np, costs)
 
         x_all, y_std, _, _ = store.standardized()
-        with telemetry.span("suggest.posterior", n=n):
-            post = self._posterior_for(store, x_all, y_std)
-        rows = self.cache.live_rows(n)  # factor rows, in store order
-        n_live = len(rows)
-        y_live = np.zeros(post.x_train.shape[0])
-        y_live[:n_live] = y_std[rows]
-        post = refresh_alpha(post, self._tensor(y_live))
-        self.cache.post = post
+        post, rows = self._decision_posterior(store, x_all, y_std)
         y_best = float(y_std.min())  # best *real* observation
 
-        # --- pending (§4.4) + scratch posterior for fantasies ---------------
-        d = space.encoded_dim
-        pend_buf = np.zeros((cfg.max_pending, d))
+        def score(work, head, pend_buf, pend_mask, key):
+            return optimize_acquisition(
+                work, self._anchors, y_best, pend_buf, pend_mask, key, cfg.acq
+            )
+
+        return self._refill(k, pend_np, x_all, post, [y_std[rows]], score)
+
+    def _decision_posterior(
+        self, store: ObservationStore, x_all: np.ndarray, y_obj: np.ndarray
+    ):
+        """The decision's objective posterior over the store's n rows, its
+        alpha solved for the standardized objective ``y_obj``, and the live
+        store rows its factor covers (in factor order)."""
+        n = store.num_observations
+        with telemetry.span("suggest.posterior", n=n):
+            post = self._posterior_for(store, x_all, y_obj)
+        rows = self.cache.live_rows(n)
+        post = self.cache.post = self._refreshed(post, y_obj[rows])
+        return post, rows
+
+    def _refill(
+        self, k: int, pend_np: np.ndarray, x_all: np.ndarray, post,
+        y_cols, score, heads=None, head_posts=None,
+    ) -> List[Dict[str, Any]]:
+        """Pending handling (§4.4) and the batched refill every GP decision
+        shares: fold the pending trials into a scratch posterior as
+        fantasies (constant liar or kriging believer) or exclude them, then
+        fill the k slots from one pipeline pass, fantasizing each interim
+        pick for the slots after it.
+
+        ``y_cols`` are the heads' live targets, the objective's first.
+        ``score(work, head, pend_buf, pend_mask, key)`` ranks one slot's
+        candidates. ``heads(work, y_block, head_work)`` re-solves the extra
+        heads' scoring state after every fold (None: a single metric).
+        ``head_posts`` (per-head layout) are the extra heads' own
+        posteriors: fantasies fold into each of them too."""
+        cfg = self.config
+        fantasize = cfg.pending_strategy in ("liar", "kb")
+        work, head_work = post, list(head_posts or ())
+        yh_work = [list(col) for col in y_cols]
+        n_live = len(yh_work[0])
+        head = None
+        if heads is not None:
+            head = heads(work, self._pad_heads(yh_work, work), head_work)
+            # arena accounting (factor_nbytes); the per-head layout has no block
+            self.cache.head_alphas = None if head_posts is not None else head.alphas
+        pend_buf = np.zeros((cfg.max_pending, self.space.encoded_dim))
         pend_mask = np.zeros(cfg.max_pending, dtype=bool)
         n_excl = 0
-        work = post
-        y_work = list(y_live[:n_live])
-        if cfg.pending_strategy in ("liar", "kb") and len(pend_np) > 0:
+        if fantasize and len(pend_np) > 0:
             with telemetry.device_span(
                 "suggest.pending_fold", self.device, pending=len(pend_np)
             ):
-                if (
-                    cfg.fantasy_block
-                    and cfg.pending_strategy == "liar"
-                    and len(pend_np) > 1
-                ):
-                    work, y_work = self._fantasy_append_block(
-                        work, y_work, pend_np
-                    )
+                if (heads is None and cfg.fantasy_block
+                        and cfg.pending_strategy == "liar" and len(pend_np) > 1):
+                    work, yh_work = self._fantasy_append_block(work, yh_work, pend_np)
                 else:
                     xb = self._tensor(pend_np)
-                    rows = self._pending_rows(work, xb, len(y_work))
+                    rows = self._pending_rows(work, xb, n_live)
+                    head_rows = [self._pending_rows(hp, xb, n_live) for hp in head_work]
                     for p, xq in enumerate(xb):
-                        work, y_work = self._fantasy_append(
-                            work, y_work, xq, rows[..., p, :]
+                        work, yh_work, head_work = self._fantasy_append(
+                            work, yh_work, xq, rows[..., p, :], head_work,
+                            [r[..., p, :] for r in head_rows],
                         )
+            if heads is not None:
+                head = heads(work, self._pad_heads(yh_work, work), head_work)
         elif len(pend_np) > 0:
             n_excl = min(len(pend_np), cfg.max_pending)
             pend_buf[:n_excl] = pend_np[:n_excl]
             pend_mask[:n_excl] = True
 
-        # --- batched refill: one pipeline pass fills all k slots -------------
+        picks: List[np.ndarray] = []
+        out: List[Dict[str, Any]] = []
         for slot in range(k):
             with telemetry.span(
                 "suggest.acq_opt", backend=cfg.acq.backend, slot=slot
             ):
-                cands, _ = optimize_acquisition(
+                cands, _ = score(
                     work,
-                    self._anchors,
-                    y_best,
+                    head,
                     self._tensor(pend_buf),
                     self._tensor(pend_mask, dtype=torch.bool),
                     self._next_key(),
-                    cfg.acq,
                 )
                 cands = cands.cpu().numpy()
             with telemetry.span("suggest.dedup", slot=slot):
@@ -711,8 +743,12 @@ class BOSuggester:
             out.append(config)
             picks.append(vec)
             if slot + 1 < k:
-                if cfg.pending_strategy in ("liar", "kb"):
-                    work, y_work = self._fantasy_append(work, y_work, self._tensor(vec))
+                if fantasize:
+                    work, yh_work, head_work = self._fantasy_append(
+                        work, yh_work, self._tensor(vec), None, head_work
+                    )
+                    if heads is not None:
+                        head = heads(work, self._pad_heads(yh_work, work), head_work)
                 elif n_excl < cfg.max_pending:
                     pend_buf[n_excl] = vec
                     pend_mask[n_excl] = True
@@ -757,25 +793,16 @@ class BOSuggester:
         num_obj = ms.num_objectives
 
         x_all, ystd, means, scales = store.standardized_metrics()
-        with telemetry.span("suggest.posterior", n=n):
-            post = self._posterior_for(
-                store, x_all, np.ascontiguousarray(ystd[:, 0])
-            )
-        rows = self.cache.live_rows(n)  # factor rows, in store order
-        n_live = len(rows)
-        size = post.x_train.shape[0]
-        y_live = np.zeros(size)
-        y_live[:n_live] = ystd[rows, 0]
-        post = refresh_alpha(post, self._tensor(y_live))
-        self.cache.post = post
-        y_heads = np.zeros((m_all, size))
-        y_heads[:, :n_live] = ystd[rows].T
+        post, rows = self._decision_posterior(
+            store, x_all, np.ascontiguousarray(ystd[:, 0])
+        )
+        y_cols = ystd[rows].T  # (M, live) head targets, in factor order
         head_posts = None
         if cfg.per_head_gphp:
             # every extra head runs its own GPHP chain + factor; the shared
             # (S, M, n) alpha block is not built (head 0 scores through the
             # objective posterior directly)
-            head_posts = self._head_posteriors_for(store, post, y_heads, n)
+            head_posts = self._head_posteriors_for(store, post, y_cols, n)
 
         # constraint thresholds + feasibility in standardized space
         t_signed = ms.signed_thresholds()  # (C,) raw signed bounds
@@ -817,9 +844,8 @@ class BOSuggester:
                 head_posts=tuple(head_posts_now),
             )
 
-        return self._decide_heads(
-            store, k, pend_np, x_all, post, y_heads, mode, make_head,
-            head_posts=head_posts,
+        return self._refill_heads(
+            k, pend_np, x_all, post, y_cols, mode, make_head, head_posts
         )
 
     def _decide_cost(
@@ -846,15 +872,7 @@ class BOSuggester:
         n = store.num_observations
 
         x_all, y_std, _, _ = store.standardized()
-        with telemetry.span("suggest.posterior", n=n):
-            post = self._posterior_for(store, x_all, y_std)
-        rows = self.cache.live_rows(n)  # factor rows, in store order
-        n_live = len(rows)
-        size = post.x_train.shape[0]
-        y_live = np.zeros(size)
-        y_live[:n_live] = y_std[rows]
-        post = refresh_alpha(post, self._tensor(y_live))
-        self.cache.post = post
+        post, rows = self._decision_posterior(store, x_all, y_std)
 
         # standardized log-cost targets over the full store prefix
         zc = np.zeros(n)
@@ -870,10 +888,6 @@ class BOSuggester:
         std = float(logs[fin].std())
         scale = std if std > 1e-12 else 1.0
         zc[npar:][fin] = (logs[fin] - mean) / scale
-
-        y_heads = np.zeros((2, size))  # objective head + log-cost head
-        y_heads[0, :n_live] = y_std[rows]
-        y_heads[1, :n_live] = zc[rows]
 
         ledger = self.budget_ledger
         eta = cfg.cost_cooling
@@ -891,8 +905,9 @@ class BOSuggester:
                 y_best_w=self._tensor(np.zeros((1,))),  # unused in cost mode
             )
 
-        return self._decide_heads(
-            store, k, pend_np, x_all, post, y_heads, "cost", make_head
+        # objective head + log-cost head
+        return self._refill_heads(
+            k, pend_np, x_all, post, [y_std[rows], zc[rows]], "cost", make_head
         )
 
     def _decide_rungs(
@@ -920,22 +935,11 @@ class BOSuggester:
         num_rungs = mf.num_active_rungs()
 
         x_all, y_std, _, _ = store.standardized()
-        with telemetry.span("suggest.posterior", n=n):
-            post = self._posterior_for(store, x_all, y_std)
-        rows = self.cache.live_rows(n)  # factor rows, in store order
-        n_live = len(rows)
-        size = post.x_train.shape[0]
-        y_live = np.zeros(size)
-        y_live[:n_live] = y_std[rows]
-        post = refresh_alpha(post, self._tensor(y_live))
-        self.cache.post = post
+        post, rows = self._decision_posterior(store, x_all, y_std)
 
         # (R, n) standardized rung-head targets; rows without a rung-k value
         # impute their final objective (dense columns — no per-head masks).
         rung_t = rung_head_targets(store, mf.rungs, num_rungs, y_std)
-        y_heads = np.zeros((1 + num_rungs, size))
-        y_heads[0, :n_live] = y_std[rows]
-        y_heads[1:, :n_live] = rung_t[:, rows]
         weights = rung_head_weights(mf.rung_grid, num_rungs)  # (1, R+1)
         # per-head incumbents: each head's EI improves on its own best
         y_best = float(y_std[:n].min())
@@ -953,104 +957,41 @@ class BOSuggester:
 
         # a span of its own, so a trace can tell the rung-aware decisions
         with telemetry.span("suggest.rungs", rungs=num_rungs, k=k):
-            return self._decide_heads(
-                store, k, pend_np, x_all, post, y_heads, "rungs", make_head
+            return self._refill_heads(
+                k, pend_np, x_all, post, [y_std[rows], *rung_t[:, rows]],
+                "rungs", make_head,
             )
 
-    def _decide_heads(
-        self, store: ObservationStore, k: int, pend_np: np.ndarray,
-        x_all: np.ndarray, post, y_heads: np.ndarray, mode: str,
-        make_head, head_posts=None,
+    def _refill_heads(
+        self, k: int, pend_np: np.ndarray, x_all: np.ndarray, post, y_cols,
+        mode: str, make_head, head_posts=None,
     ) -> List[Dict[str, Any]]:
-        """Pending handling and the slot loop shared by the multi-head
-        decisions: solve the head alphas on the shared factor, fold pending
-        trials in as fantasies (or exclude them), then fill the k slots from
-        one pipeline pass, re-solving the head alphas after each fantasy.
-        ``head_posts`` (per-head layout) are the extra heads' own posteriors:
-        fantasies then fold into each of them too, and no shared alpha block
-        is solved."""
+        """``_refill`` for the multi-head decisions: slots score through
+        ``optimize_acquisition_multi`` in ``mode``, with the head alphas
+        solved on the shared factor after every fold — or, given
+        ``head_posts`` (per-head layout), each head's own posterior and no
+        shared alpha block."""
         cfg = self.config
-        per_head = head_posts is not None
-        n_live = len(self.cache.live_rows(store.num_observations))
 
-        def heads_for(work_now, y_block: np.ndarray, posts_now):
-            if per_head:
-                return make_head(work_now.alpha[:, None, :], posts_now)
+        def heads(work, y_block: np.ndarray, posts_now):
+            if head_posts is not None:
+                return make_head(work.alpha[:, None, :], posts_now)
             with telemetry.device_span(
                 "suggest.head_alphas", self.device, heads=len(y_block)
             ):
-                head_now = make_head(
-                    solve_head_alphas(work_now, self._tensor(y_block))
-                )
-            return head_now
+                return make_head(solve_head_alphas(work, self._tensor(y_block)))
 
-        d = self.space.encoded_dim
-        pend_buf = np.zeros((cfg.max_pending, d))
-        pend_mask = np.zeros(cfg.max_pending, dtype=bool)
-        n_excl = 0
-        work = post
-        head_work = list(head_posts or ())  # per-head scratch posteriors
-        head = heads_for(post, y_heads, head_work)
-        # arena accounting (factor_nbytes); the per-head layout has no block
-        self.cache.head_alphas = None if per_head else head.alphas
-        yh_work = [list(y_heads[j, :n_live]) for j in range(len(y_heads))]
-        if cfg.pending_strategy in ("liar", "kb") and len(pend_np) > 0:
-            with telemetry.device_span(
-                "suggest.pending_fold", self.device, pending=len(pend_np)
-            ):
-                xb = self._tensor(pend_np)
-                rows = self._pending_rows(work, xb, n_live)
-                head_rows = [
-                    self._pending_rows(hp, xb, n_live) for hp in head_work
-                ]
-                for p, xq in enumerate(xb):
-                    work, yh_work, head_work = self._fantasy_append_multi(
-                        work, yh_work, xq, rows[..., p, :], head_work,
-                        [r[..., p, :] for r in head_rows],
-                    )
-            head = heads_for(work, self._pad_heads(yh_work, work), head_work)
-        elif len(pend_np) > 0:
-            n_excl = min(len(pend_np), cfg.max_pending)
-            pend_buf[:n_excl] = pend_np[:n_excl]
-            pend_mask[:n_excl] = True
+        def score(work, head, pend_buf, pend_mask, key):
+            return optimize_acquisition_multi(
+                work, head, self._anchors, pend_buf, pend_mask, key, cfg.acq, mode
+            )
 
-        picks: List[np.ndarray] = []
-        out: List[Dict[str, Any]] = []
-        for slot in range(k):
-            with telemetry.span(
-                "suggest.acq_opt", backend=cfg.acq.backend, slot=slot
-            ):
-                cands, _ = optimize_acquisition_multi(
-                    work,
-                    head,
-                    self._anchors,
-                    self._tensor(pend_buf),
-                    self._tensor(pend_mask, dtype=torch.bool),
-                    self._next_key(),
-                    cfg.acq,
-                    mode,
-                )
-                cands = cands.cpu().numpy()
-            with telemetry.span("suggest.dedup", slot=slot):
-                config, vec = self._first_unseen(cands, x_all, pend_np, picks)
-            out.append(config)
-            picks.append(vec)
-            if slot + 1 < k:
-                if cfg.pending_strategy in ("liar", "kb"):
-                    work, yh_work, head_work = self._fantasy_append_multi(
-                        work, yh_work, self._tensor(vec), None, head_work)
-                    head = heads_for(
-                        work, self._pad_heads(yh_work, work), head_work
-                    )
-                elif n_excl < cfg.max_pending:
-                    pend_buf[n_excl] = vec
-                    pend_mask[n_excl] = True
-                    n_excl += 1
-        self.cache.touched()  # LRU bump + arena budget enforcement
-        return out
+        return self._refill(
+            k, pend_np, x_all, post, y_cols, score, heads, head_posts
+        )
 
     @staticmethod
-    def _pad_heads(yh_work: List[List[float]], work) -> np.ndarray:
+    def _pad_heads(yh_work, work) -> np.ndarray:
         """Stack per-head target lists into the (M, bucket) padded block."""
         size = work.x_train.shape[0]
         out = np.zeros((len(yh_work), size))
@@ -1058,51 +999,50 @@ class BOSuggester:
             out[j, : len(col)] = col
         return out
 
-    def _fantasy_append_multi(
+    def _refreshed(self, post, col):
+        """``post`` with alpha solved for the live rows' targets ``col``."""
+        return refresh_alpha(post, self._tensor(self._pad_heads([col], post)[0]))
+
+    def _fantasy_append(
         self, work, yh_work: List[List[float]], xq: torch.Tensor, row=None,
         head_work=(), head_rows=None,
     ):
-        """Multi-head fantasy fold: append the input once per resident
-        factor (the shared factor, plus each per-head factor when
-        ``per_head_gphp`` is on) and extend every head's target list with its
-        fantasy value (constant liar, or per-head kriging-believer means).
-        ``row`` / ``head_rows``: the cross rows, as in ``_fantasy_append``."""
+        """Fold a fantasized observation (pending candidate or interim batch
+        pick) into the scratch posterior by a rank-1 append: the input once
+        per resident factor (the objective's, plus each per-head factor when
+        ``per_head_gphp`` is on), and every head's target list extended by
+        its fantasy value — the constant liar, or the kriging believer's
+        integrated posterior mean (a head's own posterior where it has one,
+        else the shared factor's head alphas). ``row`` / ``head_rows``: the
+        factors' cross rows when the caller computed a pending set's rows at
+        once (``_pending_rows``)."""
         cfg = self.config
-        head_work = list(head_work)
-        if cfg.pending_strategy == "kb":
-            if head_work:
-                # per-head kriging believer: each head's own posterior mean
-                vals = []
-                for p in [work, *head_work]:
-                    mu, _ = gplib.predict(p, xq[None, :], backend=cfg.fit_backend)
-                    vals.append(float(torch.mean(mu)))
-            else:
-                alphas_now = solve_head_alphas(
-                    work, self._tensor(self._pad_heads(yh_work, work))
-                )
-                mu, _ = predict_heads(
-                    MultiOutputPosterior(work, alphas_now),
-                    xq[None, :],
-                    backend=cfg.fit_backend,
-                )  # (S, M, 1)
-                vals = [float(v) for v in torch.mean(mu, dim=0)[:, 0].cpu().numpy()]
-        else:
+        posts = [work, *head_work]
+        if cfg.pending_strategy != "kb":
             vals = [cfg.liar_value] * len(yh_work)
-        live = len(yh_work[0])
-        work = self._append_fantasy_input(work, live, xq, row)
-        yh_work = [col + [v] for col, v in zip(yh_work, vals)]
-        y_pad = np.zeros(work.x_train.shape[0])
-        y_pad[: len(yh_work[0])] = yh_work[0]
-        work = refresh_alpha(work, self._tensor(y_pad))
-        refolded = []
-        for j, hp in enumerate(head_work):
-            hp = self._append_fantasy_input(
-                hp, live, xq, None if head_rows is None else head_rows[j]
+        elif len(posts) == len(yh_work):
+            vals = []
+            for p in posts:
+                mu, _ = gplib.predict(p, xq[None, :], backend=cfg.fit_backend)
+                vals.append(float(torch.mean(mu)))
+        else:
+            alphas_now = solve_head_alphas(
+                work, self._tensor(self._pad_heads(yh_work, work))
             )
-            yj = np.zeros(hp.x_train.shape[0])
-            yj[:live + 1] = yh_work[j + 1]
-            refolded.append(refresh_alpha(hp, self._tensor(yj)))
-        return work, yh_work, refolded
+            mu, _ = predict_heads(
+                MultiOutputPosterior(work, alphas_now),
+                xq[None, :],
+                backend=cfg.fit_backend,
+            )  # (S, M, 1)
+            vals = [float(v) for v in torch.mean(mu, dim=0)[:, 0].cpu().numpy()]
+        live = len(yh_work[0])
+        yh_work = [col + [v] for col, v in zip(yh_work, vals)]
+        rows = [row, *(head_rows or [None] * len(head_work))]
+        folded = [
+            self._refreshed(self._append_fantasy_input(p, live, xq, r), col)
+            for p, r, col in zip(posts, rows, yh_work)
+        ]
+        return folded[0], yh_work, folded[1:]
 
     # ------------------------------------------------------ posterior cache
     def _posterior_for(
@@ -1183,46 +1123,73 @@ class BOSuggester:
             if pool is not None:
                 pool.publish(cache.samples, self._chain_state)
                 cache.pool_version = pool.version
-            with telemetry.device_span("suggest.factorize", self.device, n=n):
-                post = self._factorize(xj, yj, mj)
+            posts, start, fitted = None, n, (xj, [yj], mj)
         elif not post_valid:
             # Cached draws (restored from a checkpoint or snapshot, adopted
             # from the pool, or arena-evicted factors) but no live
-            # factorization. The factors the uninterrupted engine holds were
-            # built by a full factorization at its last refit/adoption
-            # boundary followed by rank-1 appends — so the rebuild *replays*
-            # that exact op sequence instead of refactorizing at n (a size-n
-            # Cholesky differs from factorize(r)+appends in the last bits,
-            # which would break the bit-equivalence of snapshots and
-            # eviction). RNG-free. The subset backend keeps the invariant:
-            # its inducing set is a deterministic function of the store
-            # prefix at the boundary, so re-selecting over [0, r) gives the
-            # evicted or snapshotted factor's layout before the appends
-            # replay.
-            r = min(n, max(2, acct - cache.obs_since_refit))
+            # factorization: replay from the last refit/adoption boundary.
+            # The subset backend re-selects its inducing set over [0, start),
+            # a deterministic function of the store prefix, so the evicted
+            # or snapshotted factor's layout comes back before the appends.
+            start = min(n, max(2, acct - cache.obs_since_refit))
             cache.obs_since_refit += new_obs
-            rows = self._boundary_rows(x_all[:r], r)
-            xj, yj, mj = self._pad_rows(x_all, y_std, rows)
-            with telemetry.device_span(
-                "suggest.factor_rebuild", self.device, n=n, boundary=r
-            ):
-                post = self._factorize(xj, yj, mj)
-                post = self._append_rows(post, store, r, n, live0=len(rows))
+            self._boundary_rows(x_all[:start], start)
+            posts, fitted = None, None
         else:
-            live0 = (
-                acct
-                if cache.inducing_sel is None
-                else len(cache.inducing_sel) + (acct - cache.inducing_n0)
-            )
-            with telemetry.device_span(
-                "suggest.rank1_append", self.device, n=n, new=new_obs
-            ):
-                post = self._append_rows(cache.post, store, acct, n, live0=live0)
+            posts, start, fitted = [cache.post], acct, None
             cache.obs_since_refit += new_obs
-
+        (post,) = self._advance_factors(
+            ("suggest.factorize", "suggest.factor_rebuild", "suggest.rank1_append"),
+            posts, [cache.samples], store, start, n, fitted,
+            with_inverse=cfg.acq.backend == "kernel",
+        )
         cache.n = n
         cache.token = token
         return post
+
+    def _advance_factors(
+        self, spans, posts, draws, store: ObservationStore, start: int, n: int,
+        fitted=None, with_inverse: bool = False, **attrs,
+    ) -> list:
+        """The one lifecycle of the engine's factors — the objective's and
+        every per-head factor — under fixed draws: bring factors that cover
+        the live rows of store prefix ``start`` up to prefix ``n``, under one
+        span of ``spans`` = (factorize, rebuild, append) with ``attrs``.
+
+          * ``fitted`` = (x, [y per draw set], mask), the padded rows the
+            draws were just fitted on (``start == n``): factorize them.
+          * ``posts`` None, no live factor (a restore, an adoption, an arena
+            eviction): replay the factorization at the refit boundary
+            ``start`` and the rank-1 appends since. RNG-free, and bit for
+            bit the factors the uninterrupted engine holds — a size-n
+            Cholesky would differ from factorize(start) + appends in the
+            last bits, breaking the bit-equivalence snapshots, eviction and
+            failover rest on. The factor depends on X only; callers refresh
+            alpha against their targets.
+          * else rank-1 append store rows [start, n) onto ``posts``."""
+        cache = self.cache
+        live0 = len(cache.live_rows(start))
+        factorize, rebuild, append = spans
+        if posts is not None:
+            name, attrs = append, dict(n=n, new=n - start, **attrs)
+        elif fitted is not None:
+            name, attrs = factorize, dict(n=n, **attrs)
+        else:
+            name, attrs = rebuild, dict(n=n, boundary=start, **attrs)
+            xb, yb, mb = self._pad_rows(
+                store.x_rows(0, start), np.zeros(start), cache.live_rows(start)
+            )
+            fitted = (xb, [yb] * len(draws), mb)
+        with telemetry.device_span(name, self.device, **attrs):
+            if posts is None:
+                xb, ys, mb = fitted
+                posts = [
+                    self._factorize(s, xb, y, mb, with_inverse)
+                    for s, y in zip(draws, ys)
+                ]
+            return [
+                self._append_rows(p, store, start, n, live0=live0) for p in posts
+            ]
 
     def _boundary_rows(self, x_prefix: np.ndarray, r: int) -> np.ndarray:
         """Live store rows of a factorization at boundary ``r`` — all of
@@ -1259,18 +1226,12 @@ class BOSuggester:
             self._tensor(mask, dtype=torch.bool),
         )
 
-    def _factorize(self, xj, yj, mj):
-        """Factorize the masked rows under the cached GPHP draws. The fused
-        anchor-scoring kernel consumes L⁻¹; build it at factorization time so
-        every decision (and fantasy append) reuses the cached inverse."""
-        return self._factorize_with(
-            self.cache.samples, xj, yj, mj,
-            with_inverse=self.config.acq.backend == "kernel",
-        )
-
-    def _factorize_with(self, samples, xj, yj, mj, with_inverse=False):
-        """Factorize under an explicit draw set. Per-head factors take no
-        L⁻¹: their scorer is the torch composition."""
+    def _factorize(self, samples, xj, yj, mj, with_inverse=False):
+        """Factorize the masked rows under a draw set. The fused
+        anchor-scoring kernel consumes L⁻¹, so the objective's factor builds
+        it here and every decision (and fantasy append) reuses the cached
+        inverse; per-head factors take none, their scorer being the torch
+        composition."""
         params_batch = gpparams.GPHyperParams.unpack(
             self._tensor(samples), self.space.encoded_dim
         )
@@ -1279,82 +1240,54 @@ class BOSuggester:
             with_inverse=with_inverse,
         )
 
-    def _head_posteriors_for(self, store: ObservationStore, post, y_heads, n):
+    def _head_posteriors_for(self, store: ObservationStore, post, y_cols, n):
         """Per-head posteriors for ``BOConfig.per_head_gphp`` — one GPHP
-        chain and one factor per extra head, following the objective
-        factor's lifecycle: re-fitted at the objective's refit/adoption
-        boundaries (one RNG key per head, in head order), rank-1-appended
-        between boundaries, and rebuilt RNG-free after a restore or arena
-        eviction (the factor depends on X only, so the replay needs no
-        targets). Alphas are refreshed against the current head targets
-        every decision. Returns the posts in head order (head 1 first)."""
+        chain and one factor per extra head, on the objective factor's
+        lifecycle (``_advance_factors``): re-fitted at the objective's
+        refit/adoption boundaries (one RNG key per head, in head order),
+        rank-1-appended between boundaries, and replayed RNG-free after a
+        restore or arena eviction. Alphas are refreshed against the live
+        targets ``y_cols`` (objective first) every decision. Returns the
+        posts in head order (head 1 first)."""
         cache = self.cache
-        m_extra = y_heads.shape[0] - 1
-        xj, mj = post.x_train, post.mask
+        m_extra = len(y_cols) - 1
+        spans = ("suggest.head_factorize", "suggest.head_rebuild",
+                 "suggest.head_append")
         stale = (
             cache.head_samples is None or len(cache.head_samples) != m_extra
         )
         if self._boundary_refit or stale:
+            xj, mj = post.x_train, post.mask
             samples, posts = [], []
             for j in range(m_extra):
-                yj = self._tensor(y_heads[j + 1])
+                yj = self._tensor(self._pad_heads([y_cols[j + 1]], post)[0])
                 with telemetry.span("suggest.head_gphp_fit", n=n, head=j + 1):
                     s = self._fit_gphps(xj, yj, mj, chain_slot=j)
                 samples.append(np.asarray(s))
-                with telemetry.device_span(
-                    "suggest.head_factorize", self.device, n=n, head=j + 1
-                ):
-                    posts.append(self._factorize_with(s, xj, yj, mj))
+                posts += self._advance_factors(
+                    spans, None, [s], store, n, n, (xj, [yj], mj), head=j + 1
+                )
             cache.head_samples = samples
             cache.head_posts = posts
             cache.head_n = n
-        elif cache.head_posts is None:
-            # RNG-free rebuild: replay factorize-at-boundary + appends (the
-            # objective factor's invariant; see ``_posterior_for``)
-            b = n - cache.obs_since_refit
-            rows_b = (
-                cache.inducing_sel
-                if cache.inducing_sel is not None
-                else np.arange(b, dtype=np.int64)
+        elif cache.head_posts is None or cache.head_n < n:
+            # the heads follow the objective's boundary and inducing set:
+            # both change only at a refit
+            start = (
+                n - cache.obs_since_refit
+                if cache.head_posts is None
+                else cache.head_n
             )
-            nlive = len(rows_b)
-            nb = bucket_size(nlive)
-            x_pad = np.zeros((nb, self.space.encoded_dim))
-            x_pad[:nlive] = store.x_rows(0, b)[rows_b]
-            mask = np.zeros(nb, dtype=bool)
-            mask[:nlive] = True
-            posts = []
-            with telemetry.device_span("suggest.head_rebuild", self.device,
-                                       n=n, boundary=b, heads=m_extra):
-                for j in range(m_extra):
-                    hp = self._factorize_with(
-                        cache.head_samples[j],
-                        self._tensor(x_pad),
-                        self._tensor(np.zeros(nb)),
-                        self._tensor(mask, dtype=torch.bool),
-                    )
-                    posts.append(self._append_rows(hp, store, b, n, live0=nlive))
-            cache.head_posts = posts
+            cache.head_posts = self._advance_factors(
+                spans, cache.head_posts, cache.head_samples, store, start, n,
+                heads=m_extra,
+            )
             cache.head_n = n
-        elif cache.head_n < n:
-            # the heads hold the live rows of store prefix head_n (the same
-            # inducing set as the objective: both change only at a boundary)
-            live0 = len(cache.live_rows(cache.head_n))
-            with telemetry.device_span("suggest.head_append", self.device, n=n,
-                                       new=n - cache.head_n, heads=m_extra):
-                cache.head_posts = [
-                    self._append_rows(hp, store, cache.head_n, n, live0=live0)
-                    for hp in cache.head_posts
-                ]
-            cache.head_n = n
-        out = []
-        for j, hp in enumerate(cache.head_posts):
-            yj = np.zeros(hp.x_train.shape[0])
-            m_copy = min(yj.shape[0], y_heads.shape[1])
-            yj[:m_copy] = y_heads[j + 1, :m_copy]
-            out.append(refresh_alpha(hp, self._tensor(yj)))
-        cache.head_posts = out
-        return tuple(out)
+        cache.head_posts = [
+            self._refreshed(hp, y_cols[j + 1])
+            for j, hp in enumerate(cache.head_posts)
+        ]
+        return tuple(cache.head_posts)
 
     def _append_rows(
         self,
@@ -1362,7 +1295,7 @@ class BOSuggester:
         store: ObservationStore,
         start: int,
         stop: int,
-        live0: Optional[int] = None,
+        live0: int,
     ):
         """Rank-1-append store rows [start, stop), growing the shape bucket
         per row. Growth points depend only on the live-row count, so the
@@ -1373,8 +1306,6 @@ class BOSuggester:
         first append: ``start`` on the exact backend (store row == factor
         row), the inducing count plus the appends since the boundary on the
         subset backend, where the factor is smaller than the store."""
-        if live0 is None:
-            live0 = start
         for i in range(start, stop):
             live = live0 + (i - start)
             nb_i = bucket_size(live + 1)
@@ -1409,42 +1340,22 @@ class BOSuggester:
             backend=self.config.fit_backend,
         )
 
-    def _fantasy_append(self, work, y_work: List[float], xq: torch.Tensor, row=None):
-        """Fold a fantasized observation (pending candidate or interim batch
-        pick) into the scratch posterior via the rank-1 append. ``row`` is
-        its cross row when the caller computed a pending set's rows at once
-        (``_pending_rows``)."""
-        cfg = self.config
-        if cfg.pending_strategy == "kb":
-            mu, _ = gplib.predict(work, xq[None, :], backend=cfg.fit_backend)
-            val = float(torch.mean(mu))  # kriging believer: integrated mean
-        else:
-            val = cfg.liar_value  # constant liar in standardized space
-        work = self._append_fantasy_input(work, len(y_work), xq, row)
-        y_work = y_work + [val]
-        y_pad = np.zeros(work.x_train.shape[0])
-        y_pad[: len(y_work)] = y_work
-        return refresh_alpha(work, self._tensor(y_pad)), y_work
-
     def _fantasy_append_block(
-        self, work, y_work: List[float], x_block: np.ndarray
+        self, work, yh_work: List[List[float]], x_block: np.ndarray
     ):
-        """Rank-k blocked fantasy fold (``BOConfig.fantasy_block``): one
-        blocked triangular solve per GPHP sample folds the whole pending set
-        (constant-liar values only)."""
+        """``_fantasy_append`` of the whole pending set at once, single metric
+        and constant liar only (``BOConfig.fantasy_block``): one blocked
+        triangular solve per GPHP sample in place of k rank-1 appends."""
         cfg = self.config
-        k = len(x_block)
-        live = len(y_work)
-        need = bucket_size(live + k)
+        (col,) = yh_work
+        need = bucket_size(len(col) + len(x_block))
         if work.x_train.shape[0] < need:
             work = grow_posterior(work, need)
         work = posterior_append_block(
-            work, self._tensor(x_block), idx=live, backend=cfg.fit_backend
+            work, self._tensor(x_block), idx=len(col), backend=cfg.fit_backend
         )
-        y_work = y_work + [cfg.liar_value] * k
-        y_pad = np.zeros(work.x_train.shape[0])
-        y_pad[: len(y_work)] = y_work
-        return refresh_alpha(work, self._tensor(y_pad)), y_work
+        col = col + [cfg.liar_value] * len(x_block)
+        return self._refreshed(work, col), [col]
 
     # ---------------------------------------------------------------- gphps
     def _fit_gphps(

@@ -27,7 +27,7 @@
 //   computed once into registers, as one multiply and one ex2.approx.ftz.f32
 //   (MUFU.EX2). expf adds its range reduction, ~6 more FP32 instructions a
 //   state and step, and makes the kernel issue-bound (1.69 ms against 0.51
-//   at the serving shape: tools/mamba_scan_variants.py). Error: ex2.approx is
+//   at the serving shape on the H100). Error: ex2.approx is
 //   within 2 ulp (the CUDA math API's bound for exp2f, the same
 //   instruction); the rounding of a₂ and of dt·a₂ adds |dt·a₂|·2^-24 to the
 //   exponent; a result below 2^-126 flushes to 0 (exp of an argument below

@@ -80,11 +80,6 @@
 // the box] of the sequential chain, then [evaluations made, rounds]. With a
 // trace pointer, (update, g) for every evaluation of the sequential chain.
 // Every entry point returns cudaGetLastError() after its launch.
-//
-// Built with -DSLICE_CHAIN_STAMPS (tools/slice_chain_variants.py only),
-// thread 0 of each block sums clock64() cycles by stage of an evaluation and
-// of a round; with -DSLICE_CHAIN_REEVAL_G0, g(0) is evaluated at every
-// update, as the sequential chain does.
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -222,47 +217,6 @@ __device__ Smem<T> carve(unsigned char* smem, double* ws, int n, int d, int max_
   return s;
 }
 
-// Stage stamps (tools/slice_chain_variants.py): thread 0 of each block sums
-// the clock64() cycles from its last stamp into a stage.
-enum Stage : int {
-  kStBox, kStPack, kStRows, kStGram, kStTop, kStValues, kStUpdate, kStLogdet,
-  kStPlan, kStPoint, kStExchange, kStages
-};
-#ifdef SLICE_CHAIN_STAMPS
-__device__ unsigned long long g_stamps[kMaxWidth][kStages + 1];  // + evaluations made
-__shared__ unsigned long long st_sum[kStages + 1];
-__shared__ long long st_last;
-__device__ __forceinline__ void stamp(int stage) {
-  if (threadIdx.x == 0) {
-    const long long now = clock64();
-    st_sum[stage] += (unsigned long long)(now - st_last);
-    st_last = now;
-  }
-}
-__device__ __forceinline__ void stamp_reset() {
-  if (threadIdx.x == 0) st_last = clock64();
-}
-__device__ __forceinline__ void stamp_count() {
-  if (threadIdx.x == 0) st_sum[kStages] += 1;
-}
-__device__ __forceinline__ void stamp_init() {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i <= kStages; ++i) st_sum[i] = 0;
-  }
-}
-__device__ __forceinline__ void stamp_flush() {
-  if (threadIdx.x == 0) {
-    for (int i = 0; i <= kStages; ++i) g_stamps[blockIdx.x][i] += st_sum[i];
-  }
-}
-#else
-__device__ __forceinline__ void stamp(int) {}
-__device__ __forceinline__ void stamp_reset() {}
-__device__ __forceinline__ void stamp_count() {}
-__device__ __forceinline__ void stamp_init() {}
-__device__ __forceinline__ void stamp_flush() {}
-#endif
-
 // A panel of bb ≤ kPanel pivots k..k+bb−1 of the factor, held without L:
 // for a row x, its panel values a'_x,u = P[u][x] − Σ_{s<u} a'_x,s·m[u][s]
 // (the entries of columns k..k+bb−1 after the panel's earlier pivots), with
@@ -398,7 +352,6 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
       s.red[2] = q;
     }
   }
-  stamp(kStBox);
   const double noise = exp(2.0 * s.p[d + 1]) + kJitter;
 
   // the gram's parameters, packed as kernels/matern52/ops.py packs them
@@ -412,7 +365,6 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
   }
   if (tid == 0) s.par[4 * d] = repro::f_exp(T(2) * T(s.p[d]));
   __syncthreads();
-  stamp(kStPack);
   if (s.red[1] == 0.0) return -INFINITY;  // outside the box: no gram
 
   // warped, scaled live rows
@@ -424,7 +376,6 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
         s.par[3 * d + k], s.par[k]);
   }
   __syncthreads();
-  stamp(kStRows);
 
   // lower triangle of the live block of the masked gram (noise on the
   // diagonal), and y below it as row m, on the 16 × 16 thread grid (rows
@@ -447,7 +398,6 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
     }
   }
   __syncthreads();
-  stamp(kStGram);
 
   // right-looking Cholesky of the (m + 1)-row block in panels of kPanel
   // pivots: rows 0..m−1 give L, row m gives w = L⁻¹y. Pivot k is L_kk², and
@@ -464,13 +414,10 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
         if (u < bb) s.piv[k + u] = piv[u];
       }
     }
-    stamp(kStTop);
     panel_values(s.pan[p], s.pv, s.pb, s.wy, ld, k, bb, m, t);
     __syncthreads();
-    stamp(kStValues);
     panel_update(s.A, s.lda, s.pv, s.pb, s.pan[p ^ 1], ld, k, bb, m);
     __syncthreads();
-    stamp(kStUpdate);
   }
 
   // logdet = Σ log L_kk² and quad = ‖w‖² = Σ wy_k² / L_kk², on warp 0
@@ -490,7 +437,6 @@ __device__ double log_density(const Chain& c, const Smem<T>& s, int m) {
     }
   }
   __syncthreads();
-  stamp(kStLogdet);
   return s.red[0];
 }
 
@@ -520,9 +466,6 @@ __device__ __noinline__ void begin_update(Sched* __restrict__ sc, const Chain& c
   const double lo = __dmul_rn(-c.step, offset);
   sc->pt[0] = lo;
   sc->pt[1] = __dadd_rn(lo, c.step);
-#ifdef SLICE_CHAIN_REEVAL_G0
-  sc->g0_known = 0;
-#endif
   if (sc->g0_known) sc->log_y = __dsub_rn(sc->g0, level);
   const int open = c.max_stepout > 0;
   sc->k[0] = sc->k[1] = 0;
@@ -777,7 +720,6 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(Chain c) {
     sc.evals = sc.nans = sc.exhausted = sc.boxed = sc.made = sc.rounds = 0.0;
     sc.e = 0;
   }
-  stamp_init();
   __syncthreads();
   const int m = s.live[c.n];
   for (int i = tid; i < m; i += kThreads) s.yl[i] = c.y[s.live[i]];
@@ -793,14 +735,12 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(Chain c) {
       s.shrink[c.max_shrink + 1] = offsets[it];
     }
     __syncthreads();
-    stamp_reset();
     const double level = s.shrink[c.max_shrink];
     if (tid == 0) {
       begin_update(&sc, c, level, s.shrink[c.max_shrink + 1]);
       plan_round(&sc, &pl, s.shrink, c.max_stepout, c.max_shrink, c.step, W);
     }
     __syncthreads();
-    stamp(kStPlan);
     for (;;) {
       double v = 0.0;
       if (rank < pl.count) {
@@ -809,14 +749,11 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(Chain c) {
           s.p[k] = __dadd_rn(s.z[k], __dmul_rn(t, s.dir[k]));
         }
         __syncthreads();
-        stamp(kStPoint);
         v = log_density<T>(c, s, m);
-        stamp_count();
         // every block's copy of this slot's value
         if (tid < W) *cluster.map_shared_rank(s.gv + par * kMaxWidth + rank, tid) = v;
       }
       cluster.sync();
-      stamp(kStExchange);
       if (tid == 0) {
         pl.done = decide_round(&sc, &pl, s.gv + par * kMaxWidth, s.gside, s.gshr, c, it,
                                level, writer);
@@ -824,7 +761,6 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(Chain c) {
       }
       par ^= 1;
       __syncthreads();
-      stamp(kStPlan);
       if (pl.done) break;
     }
     const double t_fin = pl.t_fin;
@@ -847,7 +783,6 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(Chain c) {
     counts[4] = sc.made;
     counts[5] = sc.rounds;
   }
-  stamp_flush();
   cluster.sync();  // no block leaves while another may still write to it
 }
 
@@ -961,17 +896,5 @@ int slice_chain_width(int n, int d, int max_stepout, int max_shrink, int tsize, 
   return tsize == 4 ? width<float>(n, d, max_stepout, max_shrink, in_smem != 0)
                     : width<double>(n, d, max_stepout, max_shrink, in_smem != 0);
 }
-
-#ifdef SLICE_CHAIN_STAMPS
-// Copy the stage cycles ([kMaxWidth][kStages + 1] u64) to the host and zero them.
-int slice_chain_stamps(void* host) {
-  cudaError_t err = cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));
-  if (err == cudaSuccess) {
-    static unsigned long long zero[kMaxWidth][kStages + 1];
-    err = cudaMemcpyToSymbol(g_stamps, zero, sizeof(g_stamps));
-  }
-  return (int)err;
-}
-#endif
 
 }  // extern "C"

@@ -304,12 +304,12 @@ def test_pending_fold_through_rows_is_the_sequential_fold(live, bucket, backend)
     sugg = TC.BOSuggester(space, cfg, seed=0, device="cpu")
     pend = t(np.random.default_rng(live + 1).random((3, d)))
     rows = sugg._pending_rows(post, pend, live)
-    a, ya = post, list(y[:live])
-    b, yb = post, list(y[:live])
+    a, (ya,) = post, [list(y[:live])]
+    b, (yb,) = post, [list(y[:live])]
     c = post
     for p in range(3):
-        a, ya = sugg._fantasy_append(a, ya, pend[p], rows[..., p, :])
-        b, yb = sugg._fantasy_append(b, yb, pend[p])
+        a, (ya,), _ = sugg._fantasy_append(a, [ya], pend[p], rows[..., p, :])
+        b, (yb,), _ = sugg._fantasy_append(b, [yb], pend[p])
         idx = live + p
         if idx >= c.x_train.shape[0]:
             c = TI.grow_posterior(c, 16)

@@ -14,7 +14,15 @@
   no-op span.
 * ``device_span`` waits for a CUDA device before it closes, and only while
   recording.
+* The span contract: every GP decision path (single-metric liar,
+  constrained, per-head GPHP chains, cost-aware, rung heads), at each stage
+  of the factor lifecycle (a refit, rank-1 appends, a replay after the
+  factors were dropped), records a fixed multiset of (span, parent) pairs
+  and ``suggest.*`` counters — what the benchmark's metrics and
+  ``chip_smoke.py`` read.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -22,7 +30,9 @@ import torch
 
 import repro_torch.core as T
 from repro_torch.core import telemetry
+from repro_torch.core.asha import ASHAConfig
 from repro_torch.core.gp.slice_sampler import SliceSamplerConfig
+from repro_torch.core.multifidelity import MultiFidelityState
 from repro_torch.core.optimize_acq import AcqOptConfig
 
 PATHS = ["single", "constrained"]
@@ -65,26 +75,38 @@ def _metrics(c):
             "lat": 0.3 * c["k"] + c["x"]}
 
 
-def _suggester(path):
-    """A fresh engine over 6 seeded observations with 2 trials in flight."""
-    space = _space()
-    if path == "single":
-        store = T.ObservationStore(space)
+def _push(store, path, c, key):
+    m = _metrics(c)
+    if path in ("constrained", "per_head"):
+        store.push_metrics(c, m, key=key)
     else:
+        store.push(c, m["loss"], key=key, cost=1.0 + m["lat"] if path == "cost" else None)
+
+
+def _suggester(path, **over):
+    """A fresh engine over 6 seeded observations with 2 trials in flight.
+    ``path`` "single", "cost" and "rungs" keep one metric; "constrained" and
+    "per_head" add a latency constraint."""
+    space = _space()
+    if path in ("constrained", "per_head"):
         store = T.ObservationStore(space, metrics=T.MetricSet(
             (T.MetricSpec("loss"), T.MetricSpec("lat", objective=False, threshold=1.2))))
+    else:
+        store = T.ObservationStore(space)
     rng = np.random.default_rng(5)
     for i in range(6):
-        c = space.decode(rng.random(space.encoded_dim))
-        if path == "single":
-            store.push(c, _metrics(c)["loss"], key=i)
-        else:
-            store.push_metrics(c, _metrics(c), key=i)
+        _push(store, path, space.decode(rng.random(space.encoded_dim)), i)
     for i in range(6, 8):
         store.mark_pending(i, space.decode(rng.random(space.encoded_dim)))
     cfg = T.BOConfig(slice_config=SliceSamplerConfig(num_samples=12, burn_in=6, thin=2),
-                     acq=REFINE, pending_strategy="liar")
-    return T.BOSuggester(space, cfg, seed=11, store=store, device="cpu")
+                     acq=REFINE, pending_strategy="liar", cost_aware=path == "cost",
+                     per_head_gphp=path == "per_head", **over)
+    sugg = T.BOSuggester(space, cfg, seed=11, store=store, device="cpu")
+    if path == "rungs":
+        mf = sugg.multi_fidelity_state = MultiFidelityState(ASHAConfig())
+        for i in range(6):
+            mf.report_rung(i, 1, float(store.standardized()[1][i]) + 0.5)
+    return sugg
 
 
 @pytest.fixture
@@ -196,3 +218,78 @@ def test_device_span_waits_for_a_card_only_while_recording(monkeypatch):
     with tel.device_span("gphp.upload", torch.device("cpu")):
         pass
     assert ("sync", cuda) not in log and len(tel.trace_events()) == 2
+
+
+CONTRACT_PATHS = ["single", "constrained", "per_head", "cost", "rungs"]
+#: the factor spans of each lifecycle stage, (objective, per-head)
+STAGE_SPANS = {
+    "refit": (("suggest.gphp_fit", "suggest.factorize"),
+              ("suggest.head_gphp_fit", "suggest.head_factorize")),
+    "append": (("suggest.rank1_append",), ("suggest.head_append",)),
+    "rebuild": (("suggest.factor_rebuild",), ("suggest.head_rebuild",)),
+}
+
+
+def _contract(path, stage):
+    """The (span, parent) multiset and ``suggest.*`` counters of one
+    decision: suggest_batch(K) with 2 trials in flight, folded in by the
+    constant liar."""
+    top = "suggest.rungs" if path == "rungs" else "suggest.decide"
+    want = collections.Counter({
+        ("suggest.encode", None): 1,
+        ("suggest.decide", None): 1,
+        ("suggest.posterior", "suggest.decide"): 1,
+        ("suggest.pending_fold", top): 1,
+        ("suggest.acq_opt", top): K,
+        ("suggest.dedup", top): K,
+        **{(stage_, "suggest.acq_opt"): K
+           for stage_ in ("acq.anchors", "acq.refine", "acq.rerank")},
+    })
+    obj, head = STAGE_SPANS[stage]
+    for name in obj:
+        want[(name, "suggest.posterior")] += 1
+    if path == "per_head":  # one extra head, outside the posterior span
+        for name in head:
+            want[(name, "suggest.decide")] += 1
+    elif path != "single":  # the shared factor's head alphas: before and
+        # after the pending fold, and after each slot's fantasy but the last
+        want[("suggest.head_alphas", top)] += 1 + 1 + (K - 1)
+    if path == "rungs":
+        want[("suggest.rungs", "suggest.decide")] += 1
+    fits = [n for n in ("suggest.gphp_fit", "suggest.head_gphp_fit")
+            if any(n == name for name, _ in want)]
+    for fit in fits:
+        for stage_ in ("gphp.draws", "gphp.upload", "gphp.chain"):
+            want[(stage_, fit)] += 1
+    counters = {"suggest.gphp.refit": 1} if stage == "refit" else {}
+    return want, counters
+
+
+@pytest.mark.parametrize("stage", list(STAGE_SPANS))
+@pytest.mark.parametrize("path", CONTRACT_PATHS)
+def test_decision_span_contract(path, stage, registry):
+    """One decision records exactly the spans (each under its parent, each
+    as many times) and ``suggest.*`` counters its path and its factor stage
+    call for. "append" and "rebuild" follow a first decision and one new
+    observation under ``refit_every=10``; "rebuild" drops the factors in
+    between, as an arena eviction does."""
+    sugg = _suggester(path, refit_every=10)
+    if stage != "refit":
+        sugg.suggest_batch(K)
+        rng = np.random.default_rng(9)
+        _push(sugg._store, path, sugg.space.decode(rng.random(sugg.space.encoded_dim)), 8)
+        if stage == "rebuild":
+            sugg.cache.drop_factors()
+    telemetry.set_enabled(True)
+    sugg.suggest_batch(K)
+    events = telemetry.get().trace_events()
+    counters = telemetry.get().metrics()["counters"]
+    telemetry.set_enabled(False)
+    by_id = {e["span_id"]: e for e in events if e["kind"] == "span"}
+    got = collections.Counter(
+        (e["name"], None if e["parent_id"] is None else by_id[e["parent_id"]]["name"])
+        for e in by_id.values()
+    )
+    want, want_counters = _contract(path, stage)
+    assert got == want
+    assert {k: v for k, v in counters.items() if k.startswith("suggest.")} == want_counters
