@@ -161,10 +161,22 @@ of the JAX package. Phases:
    roofline terms on ``H100_SXM``, bottleneck, peak estimate and
    ``fits_hbm``; (q) the dry-run of (o)'s training step on a (1, 1) mesh:
    its per-device peak within 25% of (o)'s ``max_memory_allocated``, its
-   FLOPs beside ``model_flops``, the step's share of the bf16 peak.
+   FLOPs beside ``model_flops``, the step's share of the bf16 peak;
+12. the Mamba-2 scan (run after phase 7) — ``kernels/ssd``'s pair at
+   granite-4.0-h-small's shape (1 × 4096, 128 heads of 64, state 128, one
+   group, chunks of 256), a ragged two-batch length, two groups and the
+   reduced test config's shape: ``ssd_pack`` bit for bit against
+   ``contiguous`` on the mixer's views of its conv output; ``ssd_fwd``'s y
+   and ``ssd_bwd``'s dx, dΔ, dA, dB and dC against the composition
+   ``models/mamba2.py::ssd`` (and autograd through it) in float32 on the
+   same bf16 inputs, each also no farther than the bf16 composition but dA;
+   two backward runs bit for bit; then one mixer at the cell's widths
+   trained forward and backward on a 1 × 4096 microbatch, the route
+   counted (``mamba2.ssd.kernel``), timed beside the composition.
 
 Launch counts are set to 0 just before each job of phases 4, 5, 8, 9 and
-10, the serving runs of phases 6, 7, 10 and 11 and the flash-decode path,
+10, the serving runs of phases 6, 7, 10 and 11, the flash-decode path and
+phase 12's mixer,
 and read just after; each must launch every kernel of its path (jobs: and score only row
 buckets that phase 2 held against the plain version). Prints one line per
 case (with the rate of the resource that bounds it and its share of the
@@ -174,7 +186,8 @@ JSON line of per-kernel numbers (``launches`` from the kernel's own path,
 of phase 9, ``train_launches`` from (m)'s serving run, its training steps
 (the backward kernels' own path: the flash-attention pair must launch) and
 (n)'s job,
-``mesh_launches`` from phase 11 (o)'s serving run), then
+``mesh_launches`` from phase 11 (o)'s serving run; the SSD pair's
+``launches`` from phase 12's mixer), then
 as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero, with no result line, on
 any failure — including no visible card.
@@ -230,6 +243,9 @@ REPLACES = {
     # the route of matern52_gram_pallas inside the jitted chain
     # (src/repro/core/gp/slice_sampler.py:109, fit.py:25)
     "slice_chain": "src/repro/kernels/matern52/kernel.py:148",
+    "ssd_pack": "none: the JAX package has no Mamba-2 mixer",
+    "ssd_fwd": "none: the JAX package has no Mamba-2 mixer",
+    "ssd_bwd": "none: the JAX package has no Mamba-2 mixer",
 }
 SOURCES = {
     "acq_score": "src/repro_torch/kernels/csrc/acq_score.cu",
@@ -245,6 +261,9 @@ SOURCES = {
     "mamba_scan": "src/repro_torch/kernels/csrc/mamba_scan.cu",
     "decode_attention": "src/repro_torch/kernels/csrc/decode_attention.cu",
     "slice_chain": "src/repro_torch/kernels/csrc/slice_chain.cu",
+    "ssd_pack": "src/repro_torch/kernels/csrc/ssd.cu",
+    "ssd_fwd": "src/repro_torch/kernels/csrc/ssd.cu",
+    "ssd_bwd": "src/repro_torch/kernels/csrc/ssd.cu",
 }
 # The path whose launches the JSON line reports for each kernel.
 PATH_OF = {"acq_score": "main", "acq_score_multi": "multi",
@@ -253,7 +272,8 @@ PATH_OF = {"acq_score": "main", "acq_score_multi": "multi",
            "flash_attention_bwd_dot": "train", "flash_attention_bwd_dkdv": "train",
            "flash_attention_bwd_dq": "train",
            "mamba_scan": "mamba", "decode_attention": "decode_check",
-           "slice_chain": "main"}
+           "slice_chain": "main", "ssd_pack": "hybrid", "ssd_fwd": "hybrid",
+           "ssd_bwd": "hybrid"}
 
 # Tolerances, kernel vs plain version on the same inputs, as max |Δ| over
 # max(1, max |plain|). float64: both sides are exact to ~1e-14; 1e-9 leaves
@@ -331,6 +351,14 @@ GRANITE_BF16_TOL = 5e-2
 CHAIN_TOL = 1e-9
 CHAIN_TIE = 1e-9
 CHAIN_MAX_TIES = 1
+
+# Phase 12, the SSD pair against the composition in float32 on the same
+# bf16 inputs, as gaps of norms (tests/test_torch_ssd_kernel.py's limits):
+# y 5e-3, since every product takes bf16 operands (2^-9 relative each)
+# with float32 accumulation, a few 2^-9 over √(terms); the five gradients
+# 1e-2, since the backward's products take bf16 operands too and dx, dB
+# and dC are bf16.
+SSD_TOL = {"y": 5e-3, "grad": 1e-2}
 
 
 def fail(msg: str) -> None:
@@ -427,6 +455,8 @@ TUNE_TRIALS, TUNE_STEPS, TUNE_EVERY = 8, 60, 10
 # dry-run's per-device peak estimate must come within ESTIMATE_TOL of the
 # card's max_memory_allocated for the same step.
 MESH_TRAIN_STEPS, MESH_TIMED_STEPS = 3, 3
+# Phase 12: the hybrid arch whose Mamba-2 mixers run the SSD pair.
+HYBRID_ARCH = "granite-4.0-h-small"
 DRYRUN_ARCH = "qwen3-moe-235b-a22b"
 DRYRUN_SHAPES = ("train_4k", "decode_32k")
 DRYRUN_TIMEOUT = 400.0
@@ -1194,6 +1224,174 @@ def mamba_phase(torch, K, check, dev) -> dict:
         {"mamba_scan": cfg.layer_kinds().count("mamba")}, MAMBA_BF16_TOL, dev,
         f32_tol=F32_SERVE_TOL)
     del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ssd_phase(torch, K, telemetry, check, dev) -> dict:
+    """Phase 12; returns the launch counts of one Mamba-2 mixer's training
+    forward and backward at granite-4.0-h-small's widths."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd.kernel import ssd_bwd, ssd_fwd, ssd_pack
+    from repro_torch.models import mamba2 as M2
+    from repro_torch.models.common import MAMBA2_A_RANGE, MAMBA2_DT_RANGE, fill_param
+
+    cfg = get_config(HYBRID_ARCH)
+    m = cfg.mamba2
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED + 2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def gap(got, want):
+        d = got.double() - want.double()
+        return float(d.norm() / want.double().norm().clamp_min(1e-30))
+
+    # ssd_pack on the mixer's views of its depthwise conv's (Bt, C, S)
+    # output, SiLU'd, whose channels lie a token length apart: bit for bit
+    # against ``contiguous``. Bound: each element read and written once.
+    s = 4096
+    h, p, g, n = m.num_heads, m.head_dim, m.n_groups, m.d_state
+    xbc = randn(1, h * p + 2 * g * n, s + m.d_conv - 1).bfloat16()[..., :s]
+    views = torch.split(F.silu(xbc.transpose(1, 2)), [h * p, g * n, g * n], dim=-1)
+    for name, view, width in zip(("x", "B", "C"), views, (p, n, n)):
+        view = view.reshape(1, s, -1, width)
+        check("ssd_pack", "bf16", f"{name} {tuple(view.shape)} strides {view.stride()}",
+              lambda view=view: ssd_pack(view), lambda view=view: view.contiguous(),
+              4 * view.numel(), {}, main_shape=name == "x", tol=0.0, measure="abs")
+    del xbc, views
+
+    # The pair at the cell's shape, a ragged two-batch length, two groups
+    # and the reduced test config's shape: y and the five gradients against
+    # the composition in float32 (autograd through it for the gradients) on
+    # float32 upcasts of the same bf16 inputs (x, B, C SiLU'd; Δ log-uniform
+    # over the init's range; A = −linspace over its range; dy normal), at
+    # SSD_TOL, each also no farther from it than the bf16 composition is but
+    # dA (one sum a head over every token, whose cancellation leaves either
+    # side's gap at the other's order); two backward runs bit for bit.
+    # Bounds, the work frozen as amt_bench's ssd_roofline freezes it, for T
+    # tokens: the forward's products 2·(L/2)·(G·N + H·P) + 2·2·H·P·N a token
+    # at the bf16 peak; its bytes x, B, C (bf16), Δ and y (float32) and A,
+    # each once. The backward's products twice the forward's (each product's
+    # gradient takes two); its bytes x, B, C, Δ and dy read, dx, dB, dC
+    # (bf16) and dΔ written, A and dA.
+    lo, hi = (math.log(v) for v in MAMBA2_DT_RANGE)
+    cases = (("cell", 1, 4096, h, p, g, n, m.chunk_size),
+             ("ragged", 2, 1000, 8, 64, 1, 128, 256),
+             ("groups", 1, 777, 16, 64, 2, 64, 128),
+             ("reduced", 2, 20, 4, 16, 1, 8, 8))
+    for label, bsz, s, h, p, g, n, length in cases:
+        x, b, c = (F.silu(randn(*shape)).bfloat16()
+                   for shape in ((bsz, s, h, p), (bsz, s, g, n), (bsz, s, g, n)))
+        dt = torch.exp(lo + (hi - lo) * torch.rand((bsz, s, h), generator=gen, device=dev))
+        a = -torch.linspace(*MAMBA2_A_RANGE, h, device=dev)
+        dy = randn(bsz, s, h, p)
+        ins = (x, dt, a, b, c)
+        up = [t.float() for t in ins]
+        tokens = bsz * s
+        fwd_flops = tokens * (2 * (length / 2) * (g * n + h * p) + 2 * 2 * h * p * n)
+        fwd_bytes = tokens * (2 * h * p + 4 * h + 2 * 2 * g * n + 4 * h * p) + 4 * h
+        bwd_bytes = tokens * (2 * (2 * h * p + 4 * h + 2 * 2 * g * n) + 4 * h * p) + 8 * h
+        shape = f"{label} B={bsz} S={s} H={h} P={p} G={g} N={n} L={length}"
+        main = label == "cell"
+        check("ssd_fwd", "bf16", f"{shape} y", lambda: ssd_fwd(*ins, length)[0],
+              lambda: M2.ssd(*up, length), fwd_bytes, {"bf16": fwd_flops},
+              main_shape=main, tol=SSD_TOL["y"], measure="norm")
+        y, *saved = ssd_fwd(*ins, length)
+        want_y = M2.ssd(*up, length)
+        gaps = {"y": (gap(y, want_y), gap(M2.ssd(*ins, length), want_y))}
+        del y, want_y
+
+        def plain_grads():
+            leaves = [t.detach().float().requires_grad_(True) for t in ins]
+            return torch.autograd.grad(M2.ssd(*leaves, length), leaves, dy)
+
+        for i, gname in enumerate(("dx", "dΔ", "dA", "dB", "dC")):
+            check("ssd_bwd", "bf16", f"{shape} {gname}",
+                  lambda i=i: ssd_bwd(*ins, *saved, dy, length)[i],
+                  lambda i=i: plain_grads()[i], bwd_bytes, {"bf16": 2 * fwd_flops},
+                  main_shape=main, tol=SSD_TOL["grad"], measure="norm")
+        first = ssd_bwd(*ins, *saved, dy, length)
+        second = ssd_bwd(*ins, *saved, dy, length)
+        if not all(torch.equal(u, v) for u, v in zip(first, second)):
+            fail(f"ssd_bwd {shape}: two runs on the same inputs differ")
+        want = plain_grads()
+        comp_leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        comp = torch.autograd.grad(M2.ssd(*comp_leaves, length), comp_leaves, dy)
+        for i, gname in enumerate(("dx", "dΔ", "dA", "dB", "dC")):
+            gaps[gname] = (gap(first[i], want[i]), gap(comp[i], want[i]))
+        print(f"ssd {shape}: gaps of norms to the float32 composition, the pair's (the bf16 "
+              "composition's): " + ", ".join(f"{k} {v[0]:.3e} ({v[1]:.3e})"
+                                               for k, v in gaps.items())
+              + "; two backward runs bit for bit", flush=True)
+        farther = [k for k, (got, bf16) in gaps.items() if k != "dA" and got > bf16]
+        if farther:
+            fail(f"ssd {shape}: {farther} farther from float32 than the bf16 composition")
+        del ins, up, saved, first, second, want, comp, comp_leaves, x, b, c, dt, a, dy
+        torch.cuda.empty_cache()
+
+    # One mixer at the cell's widths, bf16, on a 1 × 4096 microbatch,
+    # launch counts from 0 and telemetry recording just before: a no-grad
+    # forward (remat's first pass) runs the pair's forward once, and a
+    # forward + backward the pair once (3 packs, the forward's 4 kernels
+    # and the backward's 6), each scan counted as ``mamba2.ssd.kernel``;
+    # then the same step timed through the pair and through the composition
+    # (the route turned off), with each leaf's gradient gap between them.
+    params = M2.mamba2_params(cfg)
+    params.to_empty(device=dev)
+    for pname, (init, scale) in params.inits.items():
+        fill_param(getattr(params, pname), init, scale, SERVE_SEED, f"mixer.{pname}")
+        getattr(params, pname).requires_grad_(True)
+    xin = (0.5 * randn(1, 4096, cfg.d_model)).bfloat16().requires_grad_(True)
+    dout = randn(1, 4096, cfg.d_model).bfloat16()
+    leaves = [xin, *params.parameters()]
+    names = ["x", *(pname for pname, _ in params.named_parameters())]
+
+    def step():
+        return torch.autograd.grad(M2.mamba2_fwd(xin, params, cfg), leaves, dout)
+
+    telemetry.get().reset()
+    telemetry.set_enabled(True)
+    K.reset_launch_counts()
+    with torch.no_grad():
+        M2.mamba2_fwd(xin, params, cfg)
+    fwd_launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    K.reset_launch_counts()
+    pair = step()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    counters = {k: v for k, v in telemetry.get().metrics()["counters"].items()
+                if k.startswith("mamba2.")}
+    telemetry.set_enabled(False)
+    telemetry.get().reset()
+    step_launches = {k: v for k, v in launches.items() if v}
+    print(f"phase 12 mixer: no-grad forward launches {fwd_launches}, forward + backward "
+          f"{step_launches}; counters {counters}", flush=True)
+    if fwd_launches != {"ssd_pack": 3, "ssd_fwd": 1}:
+        fail(f"ssd mixer: a no-grad forward launched {fwd_launches}")
+    if step_launches != {"ssd_pack": 3, "ssd_fwd": 1, "ssd_bwd": 1}:
+        fail(f"ssd mixer: a forward + backward launched {step_launches}")
+    if counters != {"mamba2.ssd.kernel": 2}:
+        fail(f"ssd mixer: the route counted {counters}, not 2 scans on the pair")
+    if not all(torch.isfinite(t).all() for t in pair):
+        fail("ssd mixer: a non-finite gradient through the pair")
+    pair_ms = time_ms(torch, step, reps=5)
+    route = M2._kernel_route
+    M2._kernel_route = lambda x: False  # the composition
+    try:
+        comp = step()
+        comp_ms = time_ms(torch, step, reps=5)
+    finally:
+        M2._kernel_route = route
+    print(f"phase 12 mixer {HYBRID_ARCH} (d_model {cfg.d_model}, {m.num_heads} heads of "
+          f"{m.head_dim}, state {m.d_state}, chunks of {m.chunk_size}), 1 x 4096 tokens, bf16: "
+          f"forward + backward "
+          f"{pair_ms:.3f} ms through the pair, {comp_ms:.3f} ms through the composition; "
+          "gradient gaps of norms pair to composition: " + ", ".join(
+              f"{nm} {gap(u, v):.3e}" for nm, u, v in zip(names, pair, comp)), flush=True)
+    del params, xin, dout, leaves, pair, comp
     torch.cuda.empty_cache()
     return launches
 
@@ -2281,6 +2479,85 @@ def large_n_phase(np, torch, K, telemetry, space, objective, metric_objective,
             proc.wait()
     return out
 
+
+def make_check(torch, peaks, floor_ms: float, results: dict):
+    """The kernel phases' ``check``: a kernel against its plain version on
+    the same inputs (max error, or the gap of norms with ``measure="norm"``,
+    against its tolerance), both timed beside the card's least time for
+    the work (``peaks``) and the launch floor; at the main path's shape the
+    numbers go into ``results`` for the JSON line. Fails on a disagreement
+    or a bound the kernel beats."""
+
+    def check(kname, dt, label, kfn, pfn, nbytes, flops, main_shape, tol=None,
+              library=None, measure=None):
+        got = kfn()
+        torch.cuda.synchronize()
+        want = pfn()
+        torch.cuda.synchronize()
+        if got.shape != want.shape:
+            fail(f"{kname} {label}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+        if not torch.isfinite(got).all():
+            fail(f"{kname} {label}: non-finite kernel output")
+        delta = (got.double() - want.double()).abs()
+        err = float(delta.max())
+        elem = TOL_ELEM.get((kname, dt)) if tol is None else None
+        if measure == "norm":  # the gap of norms, ||Δ|| / ||plain||
+            gap = float(torch.linalg.vector_norm(got.double() - want.double())
+                        / torch.linalg.vector_norm(want.double()))
+            ok = gap <= tol
+            tol_text = f"||Δ|| / ||plain|| {gap:.3e}, tol {tol:.0e}"
+        elif measure == "abs":
+            ok = err <= tol
+            tol_text = f"tol {tol:.0e} absolute"
+        elif elem is not None:
+            rel, floor = elem
+            limit = rel * want.double().abs() + floor
+            worst = float((delta / limit).max())
+            ok = worst <= 1.0
+            tol_text = (f"per element |Δ| <= {rel:.3g}·|plain| + {floor:.3g}, "
+                        f"worst {worst:.3f} of its limit")
+        else:
+            scale = max(1.0, float(want.abs().max()))
+            tol = TOL[(kname, dt)] if tol is None else tol
+            ok = err <= tol * scale
+            tol_text = f"tol {tol:.0e} x {scale:.3g}"
+        del delta
+        k_ms = time_ms(torch, kfn)
+        p_ms = time_ms(torch, pfn)
+        call_ms = time_ms(torch, kfn, hide_host=False)
+        b_ms, b_by = bound_ms(nbytes, flops, peaks)
+        t_bytes, t_ops = bound_parts(nbytes, flops, peaks)
+        # the rate of the resource that bounds the work, at kernel_ms
+        rate = (f"{nbytes / k_ms / 1e6:.1f} GB/s" if b_by == "bytes"
+                else f"{sum(flops.values()) / k_ms / 1e9:.2f} TFLOP/s, "
+                     f"{nbytes / k_ms / 1e6:.1f} GB/s")
+        floor_text = f" launch_floor_ms {floor_ms:.5f}" if k_ms <= 2 * floor_ms else ""
+        print(f"{kname} {dt} {label}: max_abs_err {err:.3e} ({tol_text}) "
+              f"kernel_ms {k_ms:.5f} ({rate}, {b_ms / k_ms:.1%} of bound: bytes "
+              f"{t_bytes / k_ms:.1%}, operations {t_ops / k_ms:.1%}) "
+              f"plain_ms {p_ms:.5f} bound_ms {b_ms:.6f} "
+              f"({b_by}){floor_text} call_ms {call_ms:.5f} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"{kname} {dt} {label} disagrees with its plain version")
+        if b_ms > k_ms:
+            fail(f"{kname} {dt} {label}: {b_ms / k_ms:.1%} of its bound — the bound is "
+                 "priced wrong (more work than the card can do in that time)")
+        lib_ms = None
+        if library is not None:
+            lib_ms = time_ms(torch, library)
+            lib_err = float((library().double() - want.double()).abs().max())
+            print(f"  library call: {lib_ms:.5f} ms, max |Δ| to plain {lib_err:.3e}",
+                  flush=True)
+        if main_shape:
+            results[kname] = {
+                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            }
+
+    return check
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -2418,72 +2695,7 @@ def main() -> None:
     floor_ms = time_ms(torch, empty_kernel)
     print(f"launch_floor_ms {floor_ms:.5f} (an empty kernel, <<<1, 1>>>)", flush=True)
 
-    def check(kname, dt, label, kfn, pfn, nbytes, flops, main_shape, tol=None,
-              library=None, measure=None):
-        got = kfn()
-        torch.cuda.synchronize()
-        want = pfn()
-        torch.cuda.synchronize()
-        if got.shape != want.shape:
-            fail(f"{kname} {label}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
-        if not torch.isfinite(got).all():
-            fail(f"{kname} {label}: non-finite kernel output")
-        delta = (got.double() - want.double()).abs()
-        err = float(delta.max())
-        elem = TOL_ELEM.get((kname, dt)) if tol is None else None
-        if measure == "norm":  # the gap of norms, ||Δ|| / ||plain||
-            gap = float(torch.linalg.vector_norm(got.double() - want.double())
-                        / torch.linalg.vector_norm(want.double()))
-            ok = gap <= tol
-            tol_text = f"||Δ|| / ||plain|| {gap:.3e}, tol {tol:.0e}"
-        elif measure == "abs":
-            ok = err <= tol
-            tol_text = f"tol {tol:.0e} absolute"
-        elif elem is not None:
-            rel, floor = elem
-            limit = rel * want.double().abs() + floor
-            worst = float((delta / limit).max())
-            ok = worst <= 1.0
-            tol_text = (f"per element |Δ| <= {rel:.3g}·|plain| + {floor:.3g}, "
-                        f"worst {worst:.3f} of its limit")
-        else:
-            scale = max(1.0, float(want.abs().max()))
-            tol = TOL[(kname, dt)] if tol is None else tol
-            ok = err <= tol * scale
-            tol_text = f"tol {tol:.0e} x {scale:.3g}"
-        del delta
-        k_ms = time_ms(torch, kfn)
-        p_ms = time_ms(torch, pfn)
-        call_ms = time_ms(torch, kfn, hide_host=False)
-        b_ms, b_by = bound_ms(nbytes, flops, peaks)
-        t_bytes, t_ops = bound_parts(nbytes, flops, peaks)
-        # the rate of the resource that bounds the work, at kernel_ms
-        rate = (f"{nbytes / k_ms / 1e6:.1f} GB/s" if b_by == "bytes"
-                else f"{sum(flops.values()) / k_ms / 1e9:.2f} TFLOP/s, "
-                     f"{nbytes / k_ms / 1e6:.1f} GB/s")
-        floor_text = f" launch_floor_ms {floor_ms:.5f}" if k_ms <= 2 * floor_ms else ""
-        print(f"{kname} {dt} {label}: max_abs_err {err:.3e} ({tol_text}) "
-              f"kernel_ms {k_ms:.5f} ({rate}, {b_ms / k_ms:.1%} of bound: bytes "
-              f"{t_bytes / k_ms:.1%}, operations {t_ops / k_ms:.1%}) "
-              f"plain_ms {p_ms:.5f} bound_ms {b_ms:.6f} "
-              f"({b_by}){floor_text} call_ms {call_ms:.5f} {'ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            fail(f"{kname} {dt} {label} disagrees with its plain version")
-        if b_ms > k_ms:
-            fail(f"{kname} {dt} {label}: {b_ms / k_ms:.1%} of its bound — the bound is "
-                 "priced wrong (more work than the card can do in that time)")
-        lib_ms = None
-        if library is not None:
-            lib_ms = time_ms(torch, library)
-            lib_err = float((library().double() - want.double()).abs().max())
-            print(f"  library call: {lib_ms:.5f} ms, max |Δ| to plain {lib_err:.3e}",
-                  flush=True)
-        if main_shape:
-            results[kname] = {
-                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            }
+    check = make_check(torch, peaks, floor_ms, results)
 
     # The scoring wrappers plan their launches (kernel.py::walk_plan) with a
     # mirror of the walk's shared-memory layout; hold it to the header's own
@@ -3285,6 +3497,11 @@ def main() -> None:
     mamba_launches = mamba_phase(torch, K, check, dev)
     phase_done("7 mamba path", t_phase)
 
+    # 12. the Mamba-2 scan's pair, and one mixer trained through it
+    t_phase = time.perf_counter()
+    hybrid_launches = ssd_phase(torch, K, telemetry, check, dev)
+    phase_done("12 Mamba-2 scan", t_phase)
+
     # 10. AMT tunes real training: granite-moe-1b-a400m served, trained,
     # restarted, and tuned by a BO job of training trials
     t_phase = time.perf_counter()
@@ -3301,7 +3518,8 @@ def main() -> None:
 
     path_launches = {"main": main_launches, "multi": multi_launches, "kb": kb_launches,
                      "serve": serve_launches, "decode_check": decode_launches,
-                     "mamba": mamba_launches, "train": train_launches["train"]}
+                     "mamba": mamba_launches, "train": train_launches["train"],
+                     "hybrid": hybrid_launches}
     line = {"kernels": []}
     for kname in K.KERNEL_NAMES:
         r = results.get(kname)

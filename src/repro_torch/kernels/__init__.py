@@ -2,8 +2,9 @@
 
 Each kernel lives in a package of its own (``acq_score``, ``matern52``,
 ``slice_chain``, ``flash_attention``, ``rglru_scan``, ``mamba_scan``,
-``decode_attention``; ``flash_attention`` also holds training's pair, its
-forward with the row log-sum-exp and a backward in three kernels):
+``decode_attention``, ``ssd``; ``flash_attention`` also holds training's
+pair, its forward with the row log-sum-exp and a backward in three kernels,
+and ``ssd`` the Mamba-2 scan's forward and backward):
 
 * ``kernel.py`` — the wrapper. On a CPU tensor it runs the plain version; on
   a CUDA tensor it launches the kernel (built from ``csrc/`` at first use,
@@ -30,7 +31,7 @@ KERNEL_NAMES = (
     "acq_score", "acq_score_multi", "matern52_gram", "matern52_cross",
     "matern52_operand", "flash_attention", "flash_attention_bwd_dot",
     "flash_attention_bwd_dkdv", "flash_attention_bwd_dq", "rglru_scan", "mamba_scan",
-    "decode_attention", "slice_chain",
+    "decode_attention", "slice_chain", "ssd_pack", "ssd_fwd", "ssd_bwd",
 )
 
 LAUNCHES = {name: 0 for name in KERNEL_NAMES}

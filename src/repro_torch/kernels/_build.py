@@ -39,6 +39,7 @@ SOURCES = {
     "mamba_scan": "mamba_scan.cu",
     "decode_attention": "decode_attention.cu",
     "slice_chain": "slice_chain.cu",
+    "ssd": "ssd.cu",
 }
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -167,6 +168,17 @@ _ARGTYPES = {
     # max_stepout, max_shrink; step; cluster width; stream
     "slice_chain": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
     + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p],
+    # src; its batch, token and channel strides; Bt, S, W; dst; stream
+    "ssd_pack": [ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 2,
+    # x, dt, A, B, C, y, cs, cb, states (f32 and bf16), the chunks' own
+    # states; Bt, S, H, P, G, N, L; token strides of x, B, C; stream
+    "ssd_fwd": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 3
+    + [ctypes.c_void_p],
+    # x, dt, A, B, C, cs, cb, states (f32 and bf16), dy; dx, ddt, dA, dB,
+    # dC; nine scratch buffers; the sizes and strides; heads a block; stream
+    "ssd_bwd": [ctypes.c_void_p] * 24 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 3
+    + [ctypes.c_int, ctypes.c_void_p],
 }
 # Entry points without a dtype suffix: name -> (argtypes, restype). All
 # but matern52_empty (an empty kernel: the launch floor) launch nothing.

@@ -1,5 +1,4 @@
-"""Mamba-2 (SSD) mixer of the port — granite-4.0-h-small's token mixer,
-trained through the plain composition.
+"""Mamba-2 (SSD) mixer of the port — granite-4.0-h-small's token mixer.
 
 Forward, as the Mamba-2 paper (Dao & Gu, 2024) and the HF
 ``granitemoehybrid`` mixer define it, with H heads of P channels
@@ -32,6 +31,17 @@ the chunk states (decay·Δx)ᵀ·B and the read-out C·S_inᵀ. The chunk state
 and the outputs are turned to float32 at once; y, the D skip and the gated
 norm are float32, and the normed result is cast back for ``out_proj``.
 
+On the card, in bf16, the scan is the hand-written pair of ``kernels/ssd``
+(``SSDTrain``: a chunked forward and a deterministic backward) with and
+without a gradient; CPU tensors, float32 ones (on the card too, by design:
+the kernels are bf16) and the fake tensors of the dry-run's trace run
+``ssd``. The kernels keep this precision or better:
+the decays are applied to C·Bᵀ in float32 before a single cast, and the
+chunk states and outputs are never rounded to bf16 (``csrc/ssd.cu``). A
+CUDA call the kernels cannot take raises. While telemetry records, the
+counters ``mamba2.ssd.kernel`` and ``mamba2.ssd.plain`` count the scans
+each route ran.
+
 Serving (prefill into a cache, decode) is not implemented for this mixer:
 ``Model.prefill`` and ``Model.decode_step`` refuse a model that has one.
 The spans ``mamba2.mixer`` and ``mamba2.ssd`` inside it
@@ -43,8 +53,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.core import telemetry
+from repro_torch.kernels.ssd.train import SSDTrain
 from repro_torch.models.common import ParamModule
 
 __all__ = ["mamba2_params", "mamba2_fwd", "ssd", "carry_states"]
@@ -132,6 +144,17 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, b: torch.Tensor, c: 
     return y[:, :s] if pad else y
 
 
+def _kernel_route(x: torch.Tensor) -> bool:
+    """Whether the scan runs the kernel pair: bf16 on the card, and not a
+    fake tensor. A float32 scan on the card runs the composition by design
+    (the kernels are bf16). Counted while telemetry records and no graph is
+    being captured."""
+    take = x.is_cuda and x.dtype == torch.bfloat16 and not is_fake(x)
+    if telemetry.recording(x.device):
+        telemetry.count("mamba2.ssd.kernel" if take else "mamba2.ssd.plain")
+    return take
+
+
 def mamba2_fwd(x: torch.Tensor, p: ParamModule, cfg) -> torch.Tensor:
     """The mixer on x (Bt, S, D) in the compute dtype → (Bt, S, D)."""
     m = cfg.mamba2
@@ -150,8 +173,9 @@ def mamba2_fwd(x: torch.Tensor, p: ParamModule, cfg) -> torch.Tensor:
         delta = F.softplus(dt.float() + p.dt_bias.float())
         a = -torch.exp(p.a_log.float())
         with telemetry.fenced_span("mamba2.ssd", x.device, tokens=bsz * s):
-            y = ssd(xs, delta, a, bm.reshape(bsz, s, g, n), cm.reshape(bsz, s, g, n),
-                    m.chunk_size)
+            scan = SSDTrain.apply if _kernel_route(xs) else ssd
+            y = scan(xs, delta, a, bm.reshape(bsz, s, g, n), cm.reshape(bsz, s, g, n),
+                     m.chunk_size)
         y = (y + p.d_skip.float()[:, None] * xs.float()).reshape(bsz, s, di)
         y = y * F.silu(z.float())
         y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + cfg.norm_eps)
